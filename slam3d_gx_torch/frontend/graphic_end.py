@@ -1,0 +1,506 @@
+"""Host SLAM state machine for the plane path: GraphicEnd
+(counterpart of slam3d_gx_tpu/frontend/graphic_end.py).
+
+The reference's per-frame control flow, branch for branch:
+
+- GraphicEnd::run (src/GraphicEnd.cpp:150-264): lost handling with
+  last-frame rescue, keyframe decision at max_pos_change, loop closure,
+  lost counter -> lostRecovery;
+- generateKeyFrame edges with information diag(100) and optional odometry
+  edges at 1/sigma^2 (src/GraphicEnd.cpp:304-351);
+- loopClosure: deterministic -3/-4 checks + `loopclosure_frames` random
+  draws over keyframes[0..size-4], dedup via `checked` (685-762);
+- lostRecovery: unconstrained vertex + all-history scan or odometry edge
+  (764-838);
+- findMoreLoops/check/checknearby post-hoc loop expansion (864-947);
+- saveFinalResult: findMoreLoops -> optimize(optimize_step) ->
+  keyframe.txt + final_after.g2o (661-682);
+- logs: error_of_transform.log (9999 = lost), lc.txt, lost.txt.
+
+Loop closure, recovery and finalize verify candidates one at a time
+(the reference's sequential check); the batched verifier of the JAX
+package is ROADMAP.md queue 1 item 10. Random draws come from one
+`torch.Generator` on the device, seeded from the config key `seed`.
+
+One deliberate delta: when the last-frame rescue promotes the last
+frame, the reference registers it against the current keyframe again
+(src/GraphicEnd.cpp:183-227) and adds that result as the edge without
+checking it, so a failed second RANSAC adds an identity edge. The port
+reuses the registration that accepted the last frame against that same
+keyframe one frame earlier (the same inputs) and registers again only
+when there is none.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..config import ParameterReader
+from ..device import resolve_device
+from ..geometry import se3
+from ..io import images, pcd, tum
+from ..ops import plane_ransac, pointcloud
+from ..ops.features import registry as feat_registry
+from . import pipeline
+from .state import FrameFeatures, Keyframe, result_to_host
+
+INFO_VISUAL = np.diag([100.0] * 6)
+
+# config values that select code paths this package does not carry yet,
+# each with the ROADMAP.md queue 1 item that ports it (the extractor
+# refuses detect_scope: plane and plane_image_mode: splat itself)
+_UNPORTED = (
+    ("mesh_devices", lambda v: int(float(v)) != 0, "item 18 (multi-device mesh)"),
+    ("loop_closure_scored", lambda v: int(float(v)) != 0,
+     "item 17 (scored loop closure, parallel/lcdb.py)"),
+    ("finalize_prefilter", lambda v: int(float(v)) != 0,
+     "item 17 (finalize pre-filter, parallel/lcdb.py)"),
+    ("voxel_downsample_clouds", lambda v: v.strip().lower() in ("1", "yes", "true", "on"),
+     "item 16 (voxel_downsample_clouds)"),
+)
+
+
+class GraphicEnd:
+    """Plane-feature SLAM frontend."""
+
+    def __init__(self, params: Optional[ParameterReader] = None,
+                 data_dir: str = "./data", device=None):
+        self.params = params if params is not None else ParameterReader("./parameters.yaml")
+        p = self.params
+        for key, unported, item in _UNPORTED:
+            if unported(p.GetPara(key)):
+                raise NotImplementedError(
+                    f"{key}: {p.GetPara(key)} is not ported yet: ROADMAP.md queue 1 {item}")
+        self.device = resolve_device(device)
+        self.data_dir = data_dir
+        self.intr = p.intrinsics
+
+        self.detector_name = p.GetPara("detector_name")
+        self.descriptor_name = p.GetPara("descriptor_name")
+        self.start_index = p.get_int("start_index")
+        self.step_time = p.get_int("step_time")  # accepted, headless
+        self.distance_threshold = p.get_float("distance_threshold")
+        self.error_threshold = p.get_float("error_threshold")
+        self.percent = p.get_float("plane_percent")
+        self.max_pos_change = p.get_float("max_pos_change")
+        self.max_planes = p.get_int("max_planes")
+        self.loopclosure_frames = p.get_int("loopclosure_frames")
+        self.loop_closure_detection = p.get_bool("loop_closure_detection")
+        self.loop_closure_error = p.get_float("loop_closure_error")
+        self.loop_closure_inliers = p.get_int("loop_closure_inliers")
+        self.lost_frames = p.get_int("lost_frames")
+        self.use_odometry = p.get_bool("use_odometry")
+        self.error_odometry = p.get_float("error_odometry")
+        self.z_filter = p.get_float("z_filter")
+        self.max_kp = p.get_int("max_keypoints")
+        self.hypotheses = p.get_int("ransac_hypotheses")
+        self.seed = p.get_int("seed")
+        self.cloud_capacity = p.get_int("cloud_capacity")
+        self.frame_kp_budget = p.get_int("frame_kp_budget")
+        self.align_cloud_scale = p.get_bool("align_cloud_scale")
+        self.lc_max_drift = p.get_float("loop_closure_max_drift")
+
+        self.rgb_path, self.dep_path, self.pcl_path = tum.dataset_paths(
+            p.GetPara("data_source"))
+
+        self._rng = random.Random(self.seed)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(self.seed)
+        self._build_pipeline()
+
+        # state
+        self.robot = np.eye(4)
+        self.kf_pos = np.eye(4)
+        self.keyframes: List[Keyframe] = []
+        self.curr_kf: Optional[Keyframe] = None
+        self.present: Optional[FrameFeatures] = None
+        self.last: Optional[FrameFeatures] = None
+        self.last_frame_index = 0
+        self.lost = 0
+        self.index = self.start_index
+        self.odometry: List[np.ndarray] = []
+        self.odo_this = np.eye(4)
+        self.odo_last = np.eye(4)
+        self._lcfile = None
+        self._check_cache = {}  # (k1,k2) -> (passed, T) pair verdicts
+        self._kf_pose = {}  # kf id -> dead-reckoned pose for the drift gate
+        self._pending_feat = None
+        self._pending_index = None
+        # (keyframe id, edge T) of the accepted registration of `last`
+        # against that keyframe; None when `last` is itself the keyframe
+        self._last_reg = None
+        self.extractions = 0  # frames run through the extractor
+
+    # -- construction ------------------------------------------------------
+    def _build_pipeline(self):
+        self.extract = pipeline.build_plane_extractor(
+            self.detector_name, self.descriptor_name, self.intr,
+            max_planes=self.max_planes, max_kp=self.max_kp,
+            dist_thresh=self.distance_threshold, percent=self.percent,
+            hypotheses=self.hypotheses,
+            plane_image_mode=self.params.GetPara("plane_image_mode"),
+            detect_scope=self.params.GetPara("detect_scope"),
+            frame_kp_budget=self.frame_kp_budget,
+        )
+        self._multipnp = pipeline.build_multipnp_planes(
+            self.intr, error_threshold=self.error_threshold,
+            match_floor=feat_registry.match_floor(self.descriptor_name),
+            refine_mode=self.params.GetPara("pnp_refine_mode"),
+        )
+
+    def multipnp(self, fa: FrameFeatures, fb: FrameFeatures, minimum_inliers: int):
+        """One registration with fresh PnP draws from the run's generator."""
+        u = torch.rand((self.max_planes + 2, self.hypotheses, 3),
+                       generator=self._gen, device=self.device)
+        return self._multipnp(fa, fb, u, minimum_inliers)
+
+    def _register_keyframe(self, kf: Keyframe):
+        self.keyframes.append(kf)
+
+    # -- io ------------------------------------------------------------------
+    def _log(self, name: str, text: str, append: bool = True):
+        os.makedirs(self.data_dir, exist_ok=True)
+        with open(os.path.join(self.data_dir, name), "a" if append else "w") as f:
+            f.write(text)
+
+    def readimage(self):
+        gray = images.load_gray(os.path.join(self.rgb_path, f"{self.index}.png"))
+        depth = images.load_depth(os.path.join(self.dep_path, f"{self.index}.png"))
+        xyz, _ = pcd.read_pcd(os.path.join(self.pcl_path, f"{self.index}.pcd"))
+        # PCD clouds may use another depth unit than the depth image
+        # (convert2PCD factor 1000 vs fr1's 5000): align them so the
+        # membership images and kp3d agree
+        if self.align_cloud_scale:
+            s = pointcloud.estimate_depth_scale(
+                xyz, depth, self.intr.fx, self.intr.fy, self.intr.cx,
+                self.intr.cy, self.intr.factor)
+            if s > 1.5 or s < 1 / 1.5:
+                xyz = xyz / np.float32(s)
+        # pad the raw cloud to one fixed capacity for the whole run
+        # (default H*W); larger clouds are stride-decimated to fit. The
+        # extractor's plane-point stride is taken over this capacity.
+        if not hasattr(self, "_cloud_cap"):
+            self._cloud_cap = (self.cloud_capacity if self.cloud_capacity > 0
+                               else int(gray.size))
+        cap = self._cloud_cap
+        n = xyz.shape[0]
+        if n > cap:
+            xyz = xyz[::-(-n // cap)]
+            n = xyz.shape[0]
+        xyz_p = np.zeros((cap, 3), np.float32)
+        xyz_p[:n] = xyz
+        mask = np.zeros(cap, bool)
+        mask[:n] = True
+        dev = self.device
+        cloud = torch.from_numpy(xyz_p).to(dev)
+        # z passthrough (reference src/GraphicEnd.cpp:283-293)
+        self.curr_cloud_mask = pointcloud.passthrough_z(
+            cloud, torch.from_numpy(mask).to(dev), 0.0, self.z_filter)
+        self.curr_cloud = cloud
+        self.curr_gray = torch.tensor(gray, device=dev)
+        self.curr_depth = torch.from_numpy(depth.astype(np.int32)).to(dev)
+
+    def _extract_present(self) -> FrameFeatures:
+        self.extractions += 1
+        return self.extract(self.curr_gray, self.curr_depth, self.curr_cloud,
+                            self.curr_cloud_mask, plane_ransac.UniformSampler(self._gen))
+
+    def _take_or_extract_present(self) -> FrameFeatures:
+        """The extraction dispatched during the previous frame, or a
+        synchronous read + extract."""
+        if self._pending_feat is not None and self._pending_index == self.index:
+            feat, self._pending_feat = self._pending_feat, None
+            return feat
+        self.readimage()
+        return self._extract_present()
+
+    def _dispatch_next_extract(self):
+        """Read and enqueue the next frame's extraction after this
+        frame's multiPnP is enqueued and before its result is read back,
+        so the device works on it while the host waits."""
+        nxt = self.index + 1
+        if not os.path.exists(os.path.join(self.rgb_path, f"{nxt}.png")):
+            self._pending_feat = None
+            return
+        cur = self.index
+        self.index = nxt  # readimage keys off self.index
+        try:
+            self.readimage()
+            self._pending_feat = self._extract_present()
+            self._pending_index = nxt
+        finally:
+            self.index = cur
+
+    # -- init -----------------------------------------------------------------
+    def init(self, slam_end):
+        self.slam_end = slam_end
+        self.opt = slam_end.globalOptimizer
+        if self.use_odometry:
+            self.odometry = tum.read_odometry(
+                os.path.join(self.params.GetPara("data_source"), "associate.txt"))
+            self.odo_this = self.odo_last = self.odometry[self.index - 1]
+
+        self._log("error_of_transform.log", "", append=False)
+
+        self.readimage()
+        feats = self._extract_present()
+        self.curr_kf = Keyframe(id=0, frame_index=self.index, features=feats)
+        self._register_keyframe(self.curr_kf)
+        self._kf_pose[0] = np.eye(4)
+        self.opt.add_vertex(0, self.odo_this if self.use_odometry else self.robot,
+                            fixed=True)
+        self.last = feats
+        self.last_frame_index = self.index
+        self.index += 1
+
+    # -- per-frame step ---------------------------------------------------------
+    def _sync_odometry(self):
+        if self.use_odometry and self.odometry:
+            self.odo_this = self.odometry[min(self.index, len(self.odometry)) - 1]
+
+    def run(self):
+        self._sync_odometry()
+        present = self._take_or_extract_present()
+        self.present = present
+
+        res = self.multipnp(self.curr_kf.features, present, 12)
+        self._dispatch_next_extract()
+        T, norm, inliers, ok = result_to_host(res)
+        T = se3.inverse(T)  # the reference inverts here (src/GraphicEnd.cpp:170)
+
+        if not ok:
+            self._log("error_of_transform.log", "9999\n")
+            if self.use_odometry:
+                self.lost += 1
+            else:
+                self._rescue_with_last(present)
+        elif norm > self.max_pos_change:
+            self._log("error_of_transform.log", f"{norm:g}\n")
+            self.robot = T @ self.kf_pos
+            self.generate_keyframe(T, present)
+            if self.loop_closure_detection:
+                self.loop_closure()
+            self.lost = 0
+            self.last = present
+            self.last_frame_index = self.index
+            self._last_reg = None
+        else:
+            self._log("error_of_transform.log", f"{norm:g}\n")
+            self.robot = T @ self.kf_pos
+            self.lost = 0
+            self.last = present
+            self.last_frame_index = self.index
+            self._last_reg = (self.curr_kf.id, T)
+
+        if self.lost > self.lost_frames:
+            self.lost_recovery(present)
+            self.last = present
+            self.last_frame_index = self.index
+            self._last_reg = None
+
+        self.index += 1
+        if self.use_odometry:
+            self.odo_this = self.odometry[min(self.index, len(self.odometry)) - 1]
+        return 1
+
+    def _rescue_with_last(self, present: FrameFeatures):
+        """Lost branch: try the last ordinary frame; on success promote
+        both last and present to keyframes (src/GraphicEnd.cpp:183-227)."""
+        r = self.multipnp(self.last, present, 12)
+        r_T, r_norm, r_inl, r_ok = result_to_host(r)
+        if (not r_ok) or r_inl < self.loop_closure_inliers \
+                or r_norm > self.loop_closure_error:
+            self.lost += 1
+            return
+        self.lost = 0
+        if self._last_reg is not None and self._last_reg[0] == self.curr_kf.id:
+            Z = self._last_reg[1]  # see the module docstring
+        else:
+            rr_T, _, _, _ = result_to_host(self.multipnp(self.curr_kf.features, self.last, 12))
+            Z = se3.inverse(rr_T)
+        new_id = self.curr_kf.id + 1
+        self.curr_kf = Keyframe(id=new_id, frame_index=self.index - 1, features=self.last)
+        self._register_keyframe(self.curr_kf)
+        self.opt.add_vertex(new_id, self.odo_this if self.use_odometry else np.eye(4))
+        self.opt.add_edge(new_id - 1, new_id, Z, INFO_VISUAL)
+        self._chain_pose_hint(new_id, Z)
+        self.generate_keyframe(se3.inverse(r_T), present)
+        self.last = present
+        self.last_frame_index = self.index
+        self._last_reg = None
+
+    def generate_keyframe(self, T: np.ndarray, present: FrameFeatures):
+        new_id = self.curr_kf.id + 1
+        self.kf_pos = self.robot
+        self.curr_kf = Keyframe(id=new_id, frame_index=self.index, features=present)
+        self._register_keyframe(self.curr_kf)
+        self.opt.add_vertex(new_id, self.odo_this if self.use_odometry else np.eye(4))
+        self.opt.add_edge(new_id - 1, new_id, T, INFO_VISUAL)
+        self._chain_pose_hint(new_id, T)
+        if self.use_odometry:
+            To = se3.inverse(self.odo_last) @ self.odo_this
+            self.opt.add_edge(new_id - 1, new_id, To,
+                              np.eye(6) / (self.error_odometry**2))
+            self.odo_last = self.odo_this
+
+    # -- drift gate (config key loop_closure_max_drift; 0 = off) ---------------
+    def _chain_pose_hint(self, new_id: int, Z) -> None:
+        """hint_new = hint_prev @ Z for the sequential edge new-1 -> new;
+        a missing predecessor leaves the chain broken (gate permissive)."""
+        prev = self._kf_pose.get(new_id - 1)
+        self._kf_pose[new_id] = None if prev is None else prev @ np.asarray(Z, np.float64)
+
+    def _reanchor_pose_hint(self, new_id: int, anchor_id: int, Z) -> None:
+        """Re-anchor a broken hint chain from an accepted edge anchor -> new."""
+        if self._kf_pose.get(new_id) is not None:
+            return
+        pa = self._kf_pose.get(anchor_id)
+        if pa is not None:
+            self._kf_pose[new_id] = pa @ np.asarray(Z, np.float64)
+
+    def _lc_within_drift(self, old_kf: Keyframe, new_kf: Keyframe, Z) -> bool:
+        """Reject a loop edge whose measured relative translation deviates
+        from the dead-reckoned prediction by more than the gate."""
+        if self.lc_max_drift <= 0:
+            return True
+        pa = self._kf_pose.get(old_kf.id)
+        pb = self._kf_pose.get(new_kf.id)
+        if pa is None or pb is None:
+            return True
+        expected = se3.inverse(pa) @ pb
+        return float(np.linalg.norm(expected[:3, 3] - Z[:3, 3])) <= self.lc_max_drift
+
+    # -- loop closure -------------------------------------------------------
+    def _try_loop_edge(self, kf: Keyframe, record: bool) -> bool:
+        T, norm, inl, ok = result_to_host(
+            self.multipnp(kf.features, self.curr_kf.features, self.loop_closure_inliers))
+        if not ok or norm > self.loop_closure_error or inl < self.loop_closure_inliers:
+            return False
+        T = se3.inverse(T)
+        if not self._lc_within_drift(kf, self.curr_kf, T):
+            return False
+        if record:
+            self.display_lc(kf.frame_index, self.curr_kf.frame_index, norm, inl)
+        self.opt.add_edge(kf.id, self.curr_kf.id, T, INFO_VISUAL, robust=True)
+        self._reanchor_pose_hint(self.curr_kf.id, kf.id, T)
+        return True
+
+    def loop_closure(self):
+        if len(self.keyframes) <= 3:
+            return
+        # deterministic keyframes -3/-4 (src/GraphicEnd.cpp:694-725) +
+        # `loopclosure_frames` dedup'd uniform draws (729-761)
+        nearby = [len(self.keyframes) + i for i in (-3, -4)
+                  if len(self.keyframes) + i >= 0]
+        checked: List[int] = []
+        for _ in range(self.loopclosure_frames):
+            frame = self._rng.randrange(len(self.keyframes) - 3)
+            if frame not in checked:
+                checked.append(frame)
+        for n in nearby:
+            self._try_loop_edge(self.keyframes[n], record=False)
+        for frame in checked:
+            if self._try_loop_edge(self.keyframes[frame], record=True):
+                self.keyframes[-1].connect.append(frame)
+
+    def lost_recovery(self, present: FrameFeatures):
+        new_id = self.curr_kf.id + 1
+        self.kf_pos = self.robot
+        self.curr_kf = Keyframe(id=new_id, frame_index=self.index, features=present)
+        self._log("lost.txt", f"{new_id} {self.index}\n")
+        self._register_keyframe(self.curr_kf)
+        # pose unknown after a blackout: break the drift-gate hint chain
+        self._kf_pose[new_id] = None
+        self.opt.add_vertex(new_id, self.odo_this if self.use_odometry else np.eye(4))
+        if self.use_odometry:
+            To = se3.inverse(self.odo_last) @ self.odo_this
+            self.opt.add_edge(new_id - 1, new_id, To,
+                              np.eye(6) / (self.error_odometry**2))
+            self._chain_pose_hint(new_id, To)
+            self.odo_last = self.odo_this
+            self.lost = 0
+            return
+        # brute-force re-localization against the whole history
+        # (src/GraphicEnd.cpp:810-836)
+        for i in range(len(self.keyframes) - 1):
+            T, norm, inl, ok = result_to_host(
+                self.multipnp(self.keyframes[i].features, self.curr_kf.features, 12))
+            if not ok or inl < self.loop_closure_inliers or norm > self.loop_closure_error:
+                continue
+            Z = se3.inverse(T)
+            self.opt.add_edge(self.keyframes[i].id, new_id, Z, INFO_VISUAL, robust=True)
+            self.keyframes[-1].connect.append(i)
+            self._reanchor_pose_hint(new_id, self.keyframes[i].id, Z)
+        self.lost = 0
+
+    def display_lc(self, frame1: int, frame2: int, norm: float, inliers: int):
+        if self._lcfile is None:
+            self._log("lc.txt", "", append=False)
+            self._lcfile = True
+        self._log("lc.txt", f"{frame1} {frame2} {norm:g} {inliers}\n")
+
+    # -- post-hoc loop expansion (src/GraphicEnd.cpp:864-947) ---------------
+    def check(self, k1: int, k2: int) -> bool:
+        """Register keyframes k1 -> k2 and, on a pass, add the loop edge.
+        A pair checked before replays its cached verdict: the reference
+        re-checks pairs and adds duplicate edges each time
+        (src/GraphicEnd.cpp:887-915)."""
+        cached = self._check_cache.get((k1, k2))
+        if cached is None:
+            T, norm, inl, ok = result_to_host(self.multipnp(
+                self.keyframes[k1].features, self.keyframes[k2].features,
+                self.loop_closure_inliers))
+            passed = (bool(ok) and norm <= self.loop_closure_error
+                      and inl >= self.loop_closure_inliers)
+            cached = self._check_cache[(k1, k2)] = (passed, T)
+        passed, T = cached
+        if not passed:
+            return False
+        Z = se3.inverse(T)
+        # the walk honors the same drift gate as loopClosure; a rejection
+        # stops the walk like a failed check
+        if not self._lc_within_drift(self.keyframes[k1], self.keyframes[k2], Z):
+            return False
+        self.opt.add_edge(self.keyframes[k1].id, self.keyframes[k2].id, Z,
+                          INFO_VISUAL, robust=True)
+        self._more_loops += 1
+        return True
+
+    def checknearby(self, source: int, target: int) -> List[int]:
+        down = [i for i in range(target - 1, -1, -1) if i != source]
+        up = [i for i in range(target + 1, len(self.keyframes)) if i != source]
+        checked = []
+        for walk in (down, up):
+            for i in walk:
+                if not self.check(source, i):
+                    break
+                checked.append(i)
+        return checked
+
+    def find_more_loops(self):
+        self._more_loops = 0
+        for i, kf in enumerate(self.keyframes):
+            for j in kf.connect:
+                for k in self.checknearby(i, j):
+                    self.checknearby(k, i)
+
+    def save_final_result(self, fileaddr: str = ""):
+        """Mirrors the reference in ignoring `fileaddr` and writing the
+        fixed data-dir paths (src/GraphicEnd.cpp:661-682)."""
+        self.find_more_loops()
+        self.opt.optimize(self.params.get_int("optimize_step"))
+        os.makedirs(self.data_dir, exist_ok=True)
+        tum.write_keyframes(os.path.join(self.data_dir, "keyframe.txt"),
+                            [(kf.id, kf.frame_index) for kf in self.keyframes])
+        self.opt.save(os.path.join(self.data_dir, "final_after.g2o"))
+
+    # reference-name aliases
+    saveFinalResult = save_final_result  # noqa: N815
+    generateKeyFrame = generate_keyframe  # noqa: N815
+    loopClosure = loop_closure  # noqa: N815
+    lostRecovery = lost_recovery  # noqa: N815

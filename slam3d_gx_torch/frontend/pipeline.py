@@ -1,0 +1,201 @@
+"""Per-frame compute: feature extraction and multiPnP
+(counterpart of slam3d_gx_tpu/frontend/pipeline.py).
+
+- plane-frame extraction mirrors extractPlanesAndGenerateImage + the
+  per-plane keypoints / descriptors / compute3dPosition of the reference
+  (src/GraphicEnd.cpp:128-134, 353-457) in the reference package's
+  frame scope: one equalize + detect + describe pass per frame, keypoints
+  assigned to planes by the analytic membership masks;
+- multipnp_planes follows GraphicEnd::multiPnP step for step
+  (src/GraphicEnd.cpp:557-659): plane match -> per-pair pnp inliers
+  pooled -> global RANSAC(8px) -> inlier gate -> re-RANSAC(3px,
+  extrinsic guess) -> norm gate; failure returns Identity.
+
+Random draws are arguments: the extractor takes a plane sampler
+(ops/plane_ransac.py), multipnp the (P+2,B,3) PnP uniforms, one (B,3)
+block per solve in the reference's key-split order (P per-plane solves,
+the pooled solve, the 3px re-solve).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..config import CameraIntrinsics
+from ..ops import imageproc, lie, match, plane_ransac, pnp, pointcloud
+from ..ops.features import registry
+from ..ops.features.common import pixel_index
+from .state import FrameFeatures, MultiPnPResult
+
+# point budget the plane-RANSAC stage decimates the cloud to
+PLANE_POINTS = 8192
+# farthest depth (m) a pixel may have to join a plane's membership image
+Z_MAX = 7.0
+# reprojection threshold (px) of the pooled solve (src/GraphicEnd.cpp:595)
+POOLED_REPROJ = 8.0
+
+
+def compute_kp3d_plane(depth, uv, coeff, intr: CameraIntrinsics):
+    """Pinhole backprojection of keypoints (...,K,2) with plane coeff
+    (...,4); zero-depth keypoints fall back to the plane-ray intersection
+    (reference src/GraphicEnd.cpp:440-455). Depth is read at the rounded
+    pixel (src/GraphicEnd.cpp:438)."""
+    u, v = pixel_index(uv, *depth.shape)
+    d = depth[v, u].to(torch.float32)
+    k1 = (uv[..., 0] - intr.cx) / intr.fx
+    k2 = (uv[..., 1] - intr.cy) / intr.fy
+    z_meas = d / intr.factor
+    a, b, c, e = (coeff[..., i, None] for i in range(4))
+    denom = a * k1 + b * k2 + c
+    z_plane = -e / torch.where(torch.abs(denom) > 1e-9, denom, 1e-9)
+    z = torch.where(d > 0, z_meas, z_plane)
+    return (torch.stack([k1 * z, k2 * z, z], dim=-1),
+            torch.ones(uv.shape[:-1], dtype=torch.bool, device=uv.device))
+
+
+def build_plane_extractor(
+    detector_name: str,
+    descriptor_name: str,
+    intr: CameraIntrinsics,
+    max_planes: int = 3,
+    max_kp: int = 512,
+    dist_thresh: float = 0.08,
+    percent: float = 0.2,
+    hypotheses: int = 256,
+    plane_image_mode: str = "membership",
+    detect_scope: str = "frame",
+    frame_kp_budget: int = 0,
+) -> Callable:
+    """Returns extract(gray, depth, cloud_xyz, cloud_mask, sampler) ->
+    FrameFeatures with P = max_planes.
+
+    The plane fit sees a strided decimation of the cloud to
+    PLANE_POINTS points over its fixed capacity. Only the reference
+    package's defaults are carried: frame scope and membership images;
+    `detect_scope: plane` and `plane_image_mode: splat` are ROADMAP.md
+    queue 1 item 16.
+    """
+    if plane_image_mode == "splat" or detect_scope == "plane":
+        raise NotImplementedError(
+            "plane_image_mode: splat and detect_scope: plane are not ported "
+            "yet: ROADMAP.md queue 1 item 16")
+    if plane_image_mode != "membership":
+        raise ValueError(f"plane_image_mode: {plane_image_mode!r}")
+    if detect_scope != "frame":
+        raise ValueError(f"detect_scope: {detect_scope!r}")
+    detect = registry.create_detector(detector_name, frame_kp_budget or max_kp)
+    describe = registry.create_descriptor(descriptor_name)
+
+    def extract(gray, depth, cloud_xyz, cloud_mask, sampler) -> FrameFeatures:
+        stride = max(1, cloud_xyz.shape[0] // PLANE_POINTS)
+        coeffs, _, valids, _ = plane_ransac.extract_planes(
+            cloud_xyz[::stride][:PLANE_POINTS], cloud_mask[::stride][:PLANE_POINTS],
+            sampler, max_planes=max_planes, dist_thresh=dist_thresh,
+            percent=percent, hypotheses=hypotheses)
+
+        xyz_img, valid_img = pointcloud.backproject(
+            depth, intr.fx, intr.fy, intr.cx, intr.cy, intr.factor)
+        z = xyz_img[..., 2]
+        valid_img = valid_img & (z > 0) & (z <= Z_MAX)
+        _, masks = imageproc.plane_membership_images(
+            xyz_img, valid_img, coeffs, valids, gray, dist_thresh)
+
+        # one pyramid + one descriptor pass for the whole frame; each
+        # plane keeps its own top-max_kp member keypoints by response
+        kps = detect(imageproc.equalize_hist(gray).to(torch.float32))
+        desc1 = describe(gray, kps)
+        ui, vi = pixel_index(kps.uv, *gray.shape)
+        in_plane = masks[:, vi, ui]  # (P,Kg)
+        score = torch.where(in_plane & kps.valid & valids[:, None],
+                            kps.response, -torch.inf)
+        k_eff = min(max_kp, score.shape[1])
+        vals, idx = torch.topk(score, k_eff, dim=-1)
+        uv, desc = kps.uv[idx], desc1[idx]
+        if k_eff < max_kp:
+            # a budget below max_kp cannot fill a plane: pad invalid
+            pad = max_kp - k_eff
+            vals = F.pad(vals, (0, pad), value=-torch.inf)
+            uv = F.pad(uv, (0, 0, 0, pad))
+            desc = F.pad(desc, (0, 0, 0, pad))
+        kp3d, v3 = compute_kp3d_plane(depth, uv, coeffs, intr)
+        return FrameFeatures(coeffs=coeffs, plane_valid=valids, uv=uv, kp3d=kp3d,
+                             desc=desc, kp_valid=(vals > -torch.inf) & v3)
+
+    return extract
+
+
+def _finish(rvec, tvec, norm, inliers, accept) -> MultiPnPResult:
+    T = lie.make_T(lie.rodrigues(rvec), tvec)
+    T = torch.where(accept, T, torch.eye(4, dtype=T.dtype, device=T.device))
+    return MultiPnPResult(T=T, norm=norm, inliers=inliers, ok=accept)
+
+
+def build_multipnp_planes(
+    intr: CameraIntrinsics,
+    error_threshold: float = 1.0,
+    match_floor: float = 0.0,
+    refine_mode: str = "tiered",
+) -> Callable:
+    """GraphicEnd::multiPnP (src/GraphicEnd.cpp:557-659).
+
+    Returns multipnp(fa, fb, u, minimum_inliers) with u (P+2, B, 3)
+    uniforms: B hypotheses for each of the P per-plane solves, the pooled
+    solve and the 3 px solve.
+
+    refine_mode (config key `pnp_refine_mode`): "tiered" (default) skips
+    the Gauss-Newton polish in the per-plane solves (only their inlier
+    masks are used) and shortens it to 4 steps in the pooled solve (its
+    pose only seeds the 3px solve); "full" polishes 10 steps everywhere.
+    """
+    if refine_mode not in ("tiered", "full"):
+        raise ValueError(f"refine_mode: {refine_mode!r}")
+    plane_iters = 0 if refine_mode == "tiered" else 10
+    pooled_iters = 4 if refine_mode == "tiered" else 10
+    cam = (intr.fx, intr.fy, intr.cx, intr.cy)
+
+    def multipnp(fa: FrameFeatures, fb: FrameFeatures, u: torch.Tensor,
+                 minimum_inliers) -> MultiPnPResult:
+        P, K = fa.uv.shape[:2]
+        # plane match by (a,b,c,d) coefficients (src/GraphicEnd.cpp:561)
+        pidx, _, pvalid = match.match_planes(
+            fa.coeffs, fa.plane_valid, fb.coeffs, fb.plane_valid)
+
+        # per-plane-pair matching + pnp, the P pairs as one batch; only
+        # their inlier masks are pooled (src/GraphicEnd.cpp:572-595)
+        midx, mdist, mok = match.match_nn(fa.desc, fa.kp_valid, fb.desc[pidx],
+                                          fb.kp_valid[pidx])
+        good = match.good_match_filter(mdist, mok, floor=match_floor) & pvalid[:, None]
+        img = torch.gather(fb.uv[pidx], 1, midx[..., None].expand(P, K, 2))
+        res_p = pnp.solve_pnp_ransac(fa.kp3d, img, good, *cam, u[:P],
+                                     reproj_thresh=8.0, refine_iters=plane_iters)
+
+        obj = fa.kp3d.reshape(P * K, 3)
+        img = img.reshape(P * K, 2)
+        pooled = (res_p.inliers & res_p.ok[:, None]).reshape(P * K)
+
+        # global RANSAC at 8 px (src/GraphicEnd.cpp:595)
+        res1 = pnp.solve_pnp_ransac(obj, img, pooled, *cam, u[P],
+                                    reproj_thresh=POOLED_REPROJ,
+                                    refine_iters=pooled_iters)
+        n1 = res1.n_inliers
+        have_any = pooled.sum() >= 3
+
+        # refine on inliers at 3px with extrinsic guess (src/GraphicEnd.cpp:615)
+        res2 = pnp.solve_pnp_ransac(obj, img, res1.inliers, *cam, u[P + 1],
+                                    reproj_thresh=3.0, guess_rvec=res1.rvec,
+                                    guess_tvec=res1.tvec)
+
+        rn = torch.linalg.vector_norm(res2.rvec)
+        tn = torch.linalg.vector_norm(res2.tvec)
+        norm = torch.abs(torch.minimum(rn, 2 * math.pi - rn)) + 0.9 * torch.abs(tn)
+        enough = (n1 >= minimum_inliers) & res1.ok & have_any
+        accept = enough & (norm <= error_threshold) & res2.ok
+        # the reference reports norm/inliers even when gated
+        # (src/GraphicEnd.cpp:620-624)
+        return _finish(res2.rvec, res2.tvec, torch.where(enough, norm, 0.0), n1, accept)
+
+    return multipnp

@@ -1,0 +1,74 @@
+"""Point-cloud ops: backprojection, passthrough, projection, transform
+(counterpart of slam3d_gx_tpu/ops/pointcloud.py).
+
+Fixed-shape, masked: invalid lanes carry zeros and mask=False.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def backproject(depth_raw: torch.Tensor, fx, fy, cx, cy, factor):
+    """Raw uint16 depth (H,W) -> xyz (H,W,3) float32 + valid (H,W) bool.
+
+    z = d/factor; x = (u-cx) z/fx; y = (v-cy) z/fy with u=col, v=row
+    (reference src/convert2PCD.cpp:66-70). d == 0 marks invalid.
+    """
+    depth = depth_raw.to(torch.float32)
+    H, W = depth.shape
+    v = torch.arange(H, dtype=torch.float32, device=depth.device)[:, None].expand(H, W)
+    u = torch.arange(W, dtype=torch.float32, device=depth.device)[None, :].expand(H, W)
+    z = depth / factor
+    x = (u - cx) * z / fx
+    y = (v - cy) * z / fy
+    return torch.stack([x, y, z], dim=-1), depth_raw > 0
+
+
+def project(xyz: torch.Tensor, fx, fy, cx, cy) -> torch.Tensor:
+    """(...,3) camera-frame points -> (...,2) pixel coords (u,v)."""
+    z = xyz[..., 2]
+    safe_z = torch.where(torch.abs(z) > 1e-12, z, 1e-12)
+    return torch.stack([xyz[..., 0] * fx / safe_z + cx,
+                        xyz[..., 1] * fy / safe_z + cy], dim=-1)
+
+
+def passthrough_z(xyz: torch.Tensor, mask: torch.Tensor, z_min, z_max) -> torch.Tensor:
+    """PCL PassThrough on z: keep z_min <= z <= z_max and z > 0."""
+    z = xyz[..., 2]
+    return mask & (z >= z_min) & (z <= z_max) & (z > 0)
+
+
+def transform_points(T: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+    """(4,4) @ (...,3): points @ R^T + t."""
+    return xyz @ T[:3, :3].T + T[:3, 3]
+
+
+def estimate_depth_scale(xyz, depth, fx, fy, cx, cy, factor,
+                         stride: int = 8, min_samples: int = 100):
+    """Host helper (numpy): median ratio between a PCD cloud's z and the
+    depth image's z at the pixels the cloud points project to.
+
+    The reference's dataset tools disagree on the depth factor
+    (convert2PCD hardcodes 1000, the fr1 preset reads 5000). Returns the
+    scale s with cloud_z ~ s * depth_z, or 1.0 when there aren't enough
+    co-visible samples to tell.
+    """
+    xyz = np.asarray(xyz)[::stride]
+    depth = np.asarray(depth)
+    H, W = depth.shape
+    z = xyz[:, 2]
+    ok = z > 1e-6
+    zs = np.where(ok, z, 1.0)
+    u = np.round(xyz[:, 0] * fx / zs + cx).astype(int)
+    v = np.round(xyz[:, 1] * fy / zs + cy).astype(int)
+    inb = ok & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    if inb.sum() < min_samples:
+        return 1.0
+    zd = depth[v[inb], u[inb]].astype(np.float64) / factor
+    zc = z[inb]
+    sel = zd > 1e-6
+    if sel.sum() < min_samples:
+        return 1.0
+    return float(np.median(zc[sel] / zd[sel]))
