@@ -7,22 +7,31 @@ Phases, each of which must pass or the script exits non-zero:
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every CUDA kernel of the main path from slam3d_gx_torch/csrc
    (one nvcc per source, all started together) and print ptxas' report;
-3. hold each kernel exactly equal to its plain PyTorch version on the
-   card (480x640, a constant image, an image with empty bins, ragged
-   37x53 and 1x1), then time kernel, plain version and one PyTorch
+3. hold each kernel against its plain PyTorch version on the card: K1
+   and K2 exactly (480x640, a constant image, an image with empty bins,
+   ragged 37x53 and 1x1); K3 within 1e-6 of the image's largest box sum
+   (480x640 uint8 and f32, constant, 37x53, 1x7, 7x1, a non-contiguous
+   view), also against the plain version run on the CPU.
+   Then time kernel, plain version and, where there is one, one PyTorch
    library call on the card (torch.profiler's device times, median of
    200 calls after warm-up), and one wrapper call on the stream with
    CUDA events;
 4. `equalize_hist` on the card against the plain CPU path, exactly;
-5. the main path: `run_SLAM 29` (slam3d_gx_torch.cli.run_slam.run) over a
+5. the plane path: `run_SLAM 29` (slam3d_gx_torch.cli.run_slam.run) over a
    synthetic 30-frame 640x480 orbit with the repo's parameters.yaml
-   defaults (SIFT/SIFT, 512 keypoints, 256 hypotheses, loop closure on),
-   with every kernel's launch count set to 0 just before it and read
-   just after; checks the four output files, the keyframe count, ATE
-   against the ground truth (< 0.05 m) and that each kernel ran once per
-   frame extraction;
-6. the per-frame stages (extract, multiPnP) re-run on the last frame:
-   wall ms, device-busy ms and device operations per call.
+   defaults (SIFT/SIFT, 512 keypoints, 256 hypotheses, loop closure on
+   and batched), with every kernel's launch count set to 0 just before
+   it and read just after; checks the four output files, the keyframe
+   count, ATE against the ground truth (< 0.05 m) and that K1 and K2 ran
+   once per frame extraction;
+6. the image-only path: `run_SLAM_imageonly 29`
+   (slam3d_gx_torch.cli.run_slam_imageonly) on the same orbit with
+   GFTT/SIFT, counts reset and read the same way: the same checks, K3
+   once per extraction, K1 and K2 not at all, the batched verifier used;
+7. a short plane run with GFTT: K1, K2 and K3 once per extraction each;
+8. the per-frame stages of both paths (extract, multiPnP) re-run on the
+   last frame, and one batched round of N candidates against N single
+   registrations: wall ms, device-busy ms and device operations.
 
 Prints a `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA device it exits 2 and
@@ -106,7 +115,7 @@ def bound(nbytes: int, ops: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernels(dev, kernels, equalize):
+def check_equalize_kernels(dev, kernels, equalize):
     """Exact agreement with the plain versions on awkward inputs."""
     rng = np.random.default_rng(0)
     cases = {
@@ -138,7 +147,77 @@ def check_kernels(dev, kernels, equalize):
     return err
 
 
-def time_kernels(dev, kernels, equalize):
+K3_REL_TOL = 1e-6  # of the image's largest box sum
+
+
+def check_min_eig(dev, kernels, min_eig):
+    """K3 against its plain version on the card, and against the plain
+    version run on the CPU, both within K3_REL_TOL of the largest box sum:
+    the response is a difference of two such sums, and the plain version
+    differs from the kernel's IEEE operations in last bits (on the card
+    PyTorch's scalar division is a product with the reciprocal, on the
+    CPU its sqrt is not always correctly rounded). Returns the largest
+    error on the card."""
+    rng = np.random.default_rng(4)
+    wide = rng.integers(0, 256, (H, 2 * W)).astype(np.uint8)
+    cases = {
+        "480x640 uint8": torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.uint8)),
+        "480x640 f32": torch.from_numpy((rng.normal(size=(H, W)) * 50).astype(np.float32)),
+        "constant": torch.full((H, W), 77, dtype=torch.uint8),
+        "37x53": torch.from_numpy(rng.integers(0, 256, (37, 53)).astype(np.uint8)),
+        "1x7": torch.from_numpy(rng.integers(0, 256, (1, 7)).astype(np.uint8)),
+        "7x1": torch.from_numpy((rng.normal(size=(7, 1)) * 50).astype(np.float32)),
+        "non-contiguous view": torch.from_numpy(wide)[:, ::2],
+    }
+    worst = 0.0
+    for name, img in cases.items():
+        x = img.to(dev) if img.is_contiguous() else torch.from_numpy(wide).to(dev)[:, ::2]
+        got = kernels.min_eig_response(x)
+        torch.cuda.synchronize()
+        sxx, syy, _ = min_eig.structure_tensor(x.to(torch.float32))
+        tol = K3_REL_TOL * float((sxx + syy).max())
+        err = float((got - min_eig.min_eig_response_plain(x)).abs().max())
+        err_cpu = float((got.cpu() - min_eig.min_eig_response_plain(img)).abs().max())
+        print(f"  {name}: min_eig_response max abs err {err:.6g} against the plain version "
+              f"on the card (tolerance {tol:.6g}, largest response "
+              f"{float(got.max()):.6g}), {err_cpu:.6g} against it on the CPU", flush=True)
+        if not (got.shape == img.shape and torch.isfinite(got).all()):
+            raise AssertionError(f"min_eig_response: bad output on {name}")
+        if err > tol or err_cpu > tol:
+            raise AssertionError(f"min_eig_response differs from its plain version on {name}: "
+                                 f"{err} (tolerance {tol}), {err_cpu} on the CPU")
+        worst = max(worst, err)
+    return worst
+
+
+def time_min_eig(dev, kernels, min_eig):
+    """K3 at the main path's shape and type: the image-only extractor
+    hands it the 480x640 uint8 gray frame. The f32 form, which the plane
+    extractor's equalized frame takes, is printed beside it. No single
+    PyTorch call computes this function."""
+    rng = np.random.default_rng(5)
+    x8 = torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.uint8)).to(dev)
+    x32 = x8.to(torch.float32)
+    n = x8.numel()
+    # per pixel: 2 Sobels of 6 taps (~16), 3 products, 3 box sums of 9 (~27),
+    # the closed form (~9)
+    ops = 55 * n
+    row = None
+    for label, x in (("uint8", x8), ("f32", x32)):
+        b, by = bound(x.numel() * x.element_size() + 4 * n, ops)
+        ms, how = device_ms(lambda: kernels.min_eig_response(x))
+        r = dict(ms=ms, plain_ms=device_ms(lambda: min_eig.min_eig_response_plain(x))[0],
+                 library_ms=None, bound_ms=b, bound_by=by,
+                 stream_ms=event_ms(lambda: kernels.min_eig_response(x)))
+        print(f"  min_eig_response at {H}x{W} {label} ({how}): kernel {r['ms'] * 1e3:.3f} us, "
+              f"plain {r['plain_ms'] * 1e3:.3f} us, library none, bound "
+              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); one wrapper call on the "
+              f"stream {r['stream_ms'] * 1e3:.3f} us", flush=True)
+        row = row or r
+    return row
+
+
+def time_equalize_kernels(dev, kernels, equalize):
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.uint8)).to(dev)
     lut = torch.from_numpy(np.sort(rng.integers(0, 256, 256)).astype(np.float32)).to(dev)
@@ -169,42 +248,55 @@ def time_kernels(dev, kernels, equalize):
     return rows
 
 
-def write_run_dir(work: str, intr_kw: dict) -> tuple:
+INTR_KW = dict(fx=520.0, fy=520.0, cx=320.0, cy=240.0, factor=5000.0)
+OUTPUTS = ("final.g2o", "final_after.g2o", "keyframe.txt", "error_of_transform.log")
+
+
+def write_dataset(base: str):
+    """The synthetic 30-frame 640x480 orbit every path runs on."""
     from slam3d_gx_torch.config import CameraIntrinsics
     from slam3d_gx_torch.testing import synthetic
 
-    intr = CameraIntrinsics(**intr_kw)
-    root = os.path.join(work, "dataset")
+    root = os.path.join(base, "dataset")
     traj = synthetic.orbit_trajectory(FRAMES, radius=0.25, yaw_amp=0.15)
-    synthetic.write_dataset(root, synthetic.RoomScene(seed=3), traj, intr,
-                            height=H, width=W, write_pcd=True)
+    synthetic.write_dataset(root, synthetic.RoomScene(seed=3), traj,
+                            CameraIntrinsics(**INTR_KW), height=H, width=W, write_pcd=True)
+    return root, traj
+
+
+def write_run_dir(base: str, name: str, root: str, **extra) -> str:
+    """A working directory with the repo's parameters.yaml, then this
+    dataset, its intrinsics and `extra` (the parameter reader lets a
+    later key win)."""
+    work = os.path.join(base, name)
+    os.makedirs(work)
     with open(os.path.join(REPO, "parameters.yaml")) as f:
         text = f.read()
-    # the repo's defaults, then this dataset and its intrinsics (the
-    # parameter reader lets a later key win)
     text += "\n# chip_smoke: synthetic dataset\n"
     text += f"data_source: {root}\n"
-    text += "".join(f"camera_{k}: {v}\n" for k, v in intr_kw.items())
+    text += "".join(f"camera_{k}: {v}\n" for k, v in INTR_KW.items())
+    text += "".join(f"{k}: {v}\n" for k, v in extra.items())
     with open(os.path.join(work, "parameters.yaml"), "w") as f:
         f.write(text)
-    return traj
+    return work
 
 
-def run_main_path(kernels):
-    from slam3d_gx_torch.cli import run_slam
+def run_path(kernels, entry, work: str, traj, loops: int, expect: dict,
+             min_keyframes: int = 2):
+    """Drive one entry point for `loops` frames with every launch count
+    set to 0 just before and read just after. `expect` maps each kernel
+    to whether the path must launch it once per extraction (True) or
+    never (False). Checks the output files, the keyframes and ATE."""
     from slam3d_gx_torch.io import tum
     from slam3d_gx_torch.testing import synthetic
 
-    intr_kw = dict(fx=520.0, fy=520.0, cx=320.0, cy=240.0, factor=5000.0)
-    work = tempfile.mkdtemp(prefix="chip_smoke_")
     cwd = os.getcwd()
-    traj = write_run_dir(work, intr_kw)
     os.chdir(work)
     try:
         stats = {}
         kernels.reset_counts()
         t0 = time.perf_counter()
-        rc = run_slam.run(argv=[str(FRAMES - 1)], stats=stats)
+        rc = entry(argv=[str(loops)], stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
@@ -218,36 +310,67 @@ def run_main_path(kernels):
     gt = [traj[k.frame_index - 1] for k in ge.keyframes]
     ate = synthetic.ate_rmse(gt, est)
     lc_path = os.path.join(data, "lc.txt")
-    loops = sum(1 for _ in open(lc_path)) if os.path.exists(lc_path) else 0
+    loops_closed = sum(1 for _ in open(lc_path)) if os.path.exists(lc_path) else 0
     lost = open(os.path.join(data, "error_of_transform.log")).read().split().count("9999")
     frame_ms = [s * 1e3 for s in stats["frame_seconds"]]
-    print(f"  frames {len(frame_ms) + 1}, extractions {ge.extractions}, keyframes {len(kf)}, "
-          f"loop closures {loops}, lost frames {lost}, graph edges {len(ge.opt.graph.edges)}, "
-          f"LM iterations {ge.opt.last_iters}", flush=True)
+    reg = ge.batch_registrar
+    print(f"  {type(ge).__name__}: frames {len(frame_ms) + 1}, extractions {ge.extractions}, "
+          f"keyframes {len(kf)}, loop closures {loops_closed}, lost frames {lost}, graph edges "
+          f"{len(ge.opt.graph.edges)}, LM iterations {ge.opt.last_iters}, batched verifier "
+          f"calls {reg.calls} over {reg.pairs} pairs", flush=True)
     print(f"  ATE {ate:.6f} m (bound {ATE_BOUND_M}), per-frame run() median "
           f"{statistics.median(frame_ms):.3f} ms (max {max(frame_ms):.3f}), whole run "
           f"{wall:.3f} s", flush=True)
-    print(f"  launches in the main path: {launches}", flush=True)
-    for name in ("final.g2o", "final_after.g2o", "keyframe.txt", "error_of_transform.log"):
+    print(f"  launches in this path: {launches}", flush=True)
+    for name in OUTPUTS:
         assert os.path.getsize(os.path.join(data, name)) > 0, name
-    assert len(kf) == len(ge.keyframes) >= 2, (len(kf), len(ge.keyframes))
+    assert len(kf) == len(ge.keyframes) >= min_keyframes, (len(kf), len(ge.keyframes))
+    # one extraction per frame read: the last run() also extracts the
+    # frame after it, when the dataset has one
+    assert ge.extractions in (loops + 1, loops + 2), ge.extractions
+    assert np.isfinite(ate) and ate < ATE_BOUND_M, ate
     feats = ge.keyframes[-1].features
     assert feats.desc.device.type == "cuda" and feats.uv.device.type == "cuda"
-    for k, v in launches.items():
-        assert v >= ge.extractions, f"{k}: {v} launches for {ge.extractions} extractions"
-    assert np.isfinite(ate) and ate < ATE_BOUND_M, ate
-    return launches, ge, work
+    for k, on_path in expect.items():
+        want = ge.extractions if on_path else 0
+        assert launches[k] == want, f"{k}: {launches[k]} launches, expected {want}"
+    return launches, ge
 
 
-def stage_times(ge, work, reps: int = 5):
-    """The per-frame stages re-run on the main path's last frame: median
-    synchronized wall ms, the device-busy ms inside one call (kernels,
-    memsets and copies that torch.profiler records) and the number of
-    device operations it launches."""
+def profiled(name: str, fn, reps: int = 5) -> None:
+    """Median synchronized wall ms of `fn`, and for one more call under
+    torch.profiler its wall, the device-busy ms inside it (kernels,
+    memsets and copies) and the number of device operations."""
     from torch.profiler import ProfilerActivity, profile
 
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev) / 1e3
+    print(f"  {name}: wall median {statistics.median(walls):.3f} ms; profiled call wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), "
+          f"{len(dev)} device operations", flush=True)
+
+
+def stage_times(ge, work: str, rounds: bool) -> None:
+    """The per-frame stages re-run on a path's last frame; with `rounds`,
+    also one batched verification round of N candidates against the same
+    N candidates registered one at a time."""
     from slam3d_gx_torch.frontend.state import result_to_host
 
+    label = type(ge).__name__
     cwd = os.getcwd()
     os.chdir(work)
     try:
@@ -256,30 +379,19 @@ def stage_times(ge, work, reps: int = 5):
         feats = ge._extract_present()
     finally:
         os.chdir(cwd)
-    stages = {
-        "extract": ge._extract_present,
-        "multipnp": lambda: result_to_host(ge.multipnp(ge.keyframes[-1].features, feats, 12)),
-    }
-    for name, fn in stages.items():
-        walls = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        dev = [e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(dev) / 1e3
-        print(f"  {name}: wall median {statistics.median(walls):.3f} ms; profiled call wall "
-              f"{wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), "
-              f"{len(dev)} device operations", flush=True)
+    profiled(f"{label} extract", ge._extract_present)
+    profiled(f"{label} multipnp", lambda: result_to_host(
+        ge.multipnp(ge.keyframes[-1].features, feats, 12)))
+    if not rounds:
+        return
+    n = max(8, len(ge.keyframes))
+    cand = [i % len(ge.keyframes) for i in range(n)]
+    profiled(f"{label} batched round of {n} candidates",
+             lambda: ge.batch_registrar.run_against_one(
+                 ge.kf_store, cand, feats, ge._uniforms(n), ge.loop_closure_inliers))
+    profiled(f"{label} {n} single registrations",
+             lambda: [result_to_host(ge.multipnp(ge.keyframes[i].features, feats,
+                                                 ge.loop_closure_inliers)) for i in cand])
 
 
 def main() -> int:
@@ -289,7 +401,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from slam3d_gx_torch import kernels
-    from slam3d_gx_torch.kernels import build, equalize
+    from slam3d_gx_torch.cli import run_slam, run_slam_imageonly
+    from slam3d_gx_torch.kernels import build, equalize, min_eig
     from slam3d_gx_torch.ops import imageproc
 
     dev = torch.device("cuda")
@@ -306,8 +419,10 @@ def main() -> int:
         print("\n".join(f"  [{name}] {ln}" for ln in rep.strip().splitlines()), flush=True)
 
     phase("kernels against their plain versions")
-    err = check_kernels(dev, kernels, equalize)
-    timing = time_kernels(dev, kernels, equalize)
+    err = check_equalize_kernels(dev, kernels, equalize)
+    err["min_eig_response"] = check_min_eig(dev, kernels, min_eig)
+    timing = time_equalize_kernels(dev, kernels, equalize)
+    timing["min_eig_response"] = time_min_eig(dev, kernels, min_eig)
 
     phase("equalize_hist on the card against the CPU")
     rng = np.random.default_rng(2)
@@ -318,19 +433,48 @@ def main() -> int:
         assert torch.equal(got, imageproc.equalize_hist(x)), "equalize_hist differs"
     print("  exact on random, skewed and constant images", flush=True)
 
-    phase("main path: run_SLAM on a synthetic 640x480 orbit")
-    launches, ge, work = run_main_path(kernels)
+    base = tempfile.mkdtemp(prefix="chip_smoke_")
+    root, traj = write_dataset(base)
 
-    phase("per-frame stages, re-run on the last frame")
-    stage_times(ge, work)
+    phase("plane path: run_SLAM on a synthetic 640x480 orbit (SIFT)")
+    work_planes = write_run_dir(base, "planes", root)
+    launches, ge_planes = run_path(
+        kernels, run_slam.run, work_planes, traj, FRAMES - 1,
+        {"histogram256": True, "apply_lut256": True, "min_eig_response": False})
 
+    phase("image-only path: run_SLAM_imageonly on the same orbit (GFTT)")
+    work_image = write_run_dir(base, "image", root, detector_name="GFTT",
+                               descriptor_name="SIFT")
+    launches_image, ge_image = run_path(
+        kernels, run_slam_imageonly.main, work_image, traj, FRAMES - 1,
+        {"histogram256": False, "apply_lut256": False, "min_eig_response": True})
+    assert ge_image.image_only and ge_image.params.get_int("loop_closure_batched") == 1
+    assert ge_image.batch_registrar.calls > 0, "the batched verifier was not used"
+    launches["min_eig_response"] = launches_image["min_eig_response"]
+
+    phase("plane path with GFTT, a few frames: K1, K2 and K3 once per extraction")
+    work_gftt = write_run_dir(base, "planes_gftt", root, detector_name="GFTT",
+                              descriptor_name="SIFT")
+    run_path(kernels, run_slam.run, work_gftt, traj, 4,
+             {"histogram256": True, "apply_lut256": True, "min_eig_response": True},
+             min_keyframes=1)
+
+    phase("per-frame stages, re-run on each path's last frame")
+    stage_times(ge_planes, work_planes, rounds=False)
+    stage_times(ge_image, work_image, rounds=True)
+
+    sources = {"histogram256": ("slam3d_gx_torch/csrc/equalize.cu",
+                                "slam3d_gx_tpu/ops/pallas_kernels.py:24"),
+               "apply_lut256": ("slam3d_gx_torch/csrc/equalize.cu",
+                                "slam3d_gx_tpu/ops/pallas_kernels.py:102"),
+               "min_eig_response": ("slam3d_gx_torch/csrc/min_eig.cu",
+                                    "slam3d_gx_tpu/ops/pallas_kernels.py:144")}
     rows = []
-    for name in ("histogram256", "apply_lut256"):
+    for name, (source, replaces) in sources.items():
         t = timing[name]
+        assert launches[name] > 0, f"{name} was not launched on its path"
         rows.append({
-            "name": name, "route": "cuda", "source": "slam3d_gx_torch/csrc/equalize.cu",
-            "replaces": {"histogram256": "slam3d_gx_tpu/ops/pallas_kernels.py:24",
-                         "apply_lut256": "slam3d_gx_tpu/ops/pallas_kernels.py:102"}[name],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "ok": True, "launches": launches[name], "max_abs_err": err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -1,5 +1,5 @@
-"""Host SLAM state machine for the plane path: GraphicEnd
-(counterpart of slam3d_gx_tpu/frontend/graphic_end.py).
+"""Host SLAM state machine: GraphicEnd (planes) and GraphicEnd2
+(image-only) (counterpart of slam3d_gx_tpu/frontend/graphic_end.py).
 
 The reference's per-frame control flow, branch for branch:
 
@@ -17,10 +17,14 @@ The reference's per-frame control flow, branch for branch:
   keyframe.txt + final_after.g2o (661-682);
 - logs: error_of_transform.log (9999 = lost), lc.txt, lost.txt.
 
-Loop closure, recovery and finalize verify candidates one at a time
-(the reference's sequential check); the batched verifier of the JAX
-package is ROADMAP.md queue 1 item 10. Random draws come from one
-`torch.Generator` on the device, seeded from the config key `seed`.
+With `loop_closure_batched: 1` (the default) loop closure, recovery and
+the findMoreLoops scans verify a round's candidates in one batched call
+(parallel/registration.py); a loop-closure round is launched when its
+keyframe is made and read back later, once `lc_drain_threshold` rounds
+are pending or before anything reads loop edges (lostRecovery, save).
+With 0 they verify candidates one at a time, the reference's sequential
+check. Random draws come from one `torch.Generator` on the device,
+seeded from the config key `seed`.
 
 One deliberate delta: when the last-frame rescue promotes the last
 frame, the reference registers it against the current keyframe again
@@ -46,6 +50,7 @@ from ..geometry import se3
 from ..io import images, pcd, tum
 from ..ops import plane_ransac, pointcloud
 from ..ops.features import registry as feat_registry
+from ..parallel import registration
 from . import pipeline
 from .state import FrameFeatures, Keyframe, result_to_host
 
@@ -67,6 +72,8 @@ _UNPORTED = (
 
 class GraphicEnd:
     """Plane-feature SLAM frontend."""
+
+    image_only = False
 
     def __init__(self, params: Optional[ParameterReader] = None,
                  data_dir: str = "./data", device=None):
@@ -112,6 +119,14 @@ class GraphicEnd:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.seed)
         self._build_pipeline()
+        self.kf_store = None  # registration.FeatureStore: keyframe features on the device
+        # loop-closure rounds launched and not read back yet: (candidate
+        # indices, record flags, the round's keyframe, pending results)
+        self._pending_lc = []
+        # nothing in the frontend reads loop edges before lostRecovery or
+        # the final save, so rounds wait and are read back in one copy
+        # once this many are pending
+        self.lc_drain_threshold = 24
 
         # state
         self.robot = np.eye(4)
@@ -152,15 +167,36 @@ class GraphicEnd:
             match_floor=feat_registry.match_floor(self.descriptor_name),
             refine_mode=self.params.GetPara("pnp_refine_mode"),
         )
+        # uniforms of one registration: a block per solve
+        self._u_shape = (self.max_planes + 2, self.hypotheses, 3)
+        self.batch_registrar = self._make_batch_registrar()
+
+    def _make_batch_registrar(self):
+        """The batched loop-closure / recovery verifier; config key
+        `loop_closure_batched` 0 keeps the reference's sequential
+        per-candidate checks."""
+        if self.params.get_int("loop_closure_batched") == 0:
+            return None
+        return registration.BatchedRegistrar(
+            self.intr, image_only=self.image_only,
+            error_threshold=self.error_threshold,
+            match_floor=feat_registry.match_floor(self.descriptor_name))
+
+    def _uniforms(self, *batch: int) -> torch.Tensor:
+        """Fresh PnP draws from the run's generator, for one
+        registration or a batch of them."""
+        return torch.rand(batch + self._u_shape, generator=self._gen, device=self.device)
 
     def multipnp(self, fa: FrameFeatures, fb: FrameFeatures, minimum_inliers: int):
-        """One registration with fresh PnP draws from the run's generator."""
-        u = torch.rand((self.max_planes + 2, self.hypotheses, 3),
-                       generator=self._gen, device=self.device)
-        return self._multipnp(fa, fb, u, minimum_inliers)
+        """One registration with fresh PnP draws."""
+        return self._multipnp(fa, fb, self._uniforms(), minimum_inliers)
 
     def _register_keyframe(self, kf: Keyframe):
         self.keyframes.append(kf)
+        if self.batch_registrar is not None:
+            if self.kf_store is None:
+                self.kf_store = registration.FeatureStore(kf.features)
+            self.kf_store.add(kf.features)
 
     # -- io ------------------------------------------------------------------
     def _log(self, name: str, text: str, append: bool = True):
@@ -264,6 +300,7 @@ class GraphicEnd:
             self.odo_this = self.odometry[min(self.index, len(self.odometry)) - 1]
 
     def run(self):
+        self.maybe_drain_loop_closures()
         self._sync_odometry()
         present = self._take_or_extract_present()
         self.present = present
@@ -376,19 +413,47 @@ class GraphicEnd:
         return float(np.linalg.norm(expected[:3, 3] - Z[:3, 3])) <= self.lc_max_drift
 
     # -- loop closure -------------------------------------------------------
-    def _try_loop_edge(self, kf: Keyframe, record: bool) -> bool:
-        T, norm, inl, ok = result_to_host(
-            self.multipnp(kf.features, self.curr_kf.features, self.loop_closure_inliers))
+    def _apply_loop_result(self, old_kf: Keyframe, new_kf: Keyframe, res,
+                           record: bool) -> bool:
+        """Gate one verified candidate (host tuple of a registration
+        old -> new) and, on a pass, add its loop edge."""
+        T, norm, inl, ok = res
         if not ok or norm > self.loop_closure_error or inl < self.loop_closure_inliers:
             return False
-        T = se3.inverse(T)
-        if not self._lc_within_drift(kf, self.curr_kf, T):
+        Z = se3.inverse(T)
+        if not self._lc_within_drift(old_kf, new_kf, Z):
             return False
         if record:
-            self.display_lc(kf.frame_index, self.curr_kf.frame_index, norm, inl)
-        self.opt.add_edge(kf.id, self.curr_kf.id, T, INFO_VISUAL, robust=True)
-        self._reanchor_pose_hint(self.curr_kf.id, kf.id, T)
+            self.display_lc(old_kf.frame_index, new_kf.frame_index, norm, inl)
+        self.opt.add_edge(old_kf.id, new_kf.id, Z, INFO_VISUAL, robust=True)
+        # an accepted edge re-anchors a hint chain broken by a blackout
+        self._reanchor_pose_hint(new_kf.id, old_kf.id, Z)
         return True
+
+    def _try_loop_edge(self, kf: Keyframe, record: bool) -> bool:
+        res = result_to_host(
+            self.multipnp(kf.features, self.curr_kf.features, self.loop_closure_inliers))
+        return self._apply_loop_result(kf, self.curr_kf, res, record)
+
+    def maybe_drain_loop_closures(self):
+        """Read pending rounds back once enough of them wait (see
+        lc_drain_threshold)."""
+        if len(self._pending_lc) >= self.lc_drain_threshold:
+            self.drain_pending_loop_closures()
+
+    def drain_pending_loop_closures(self):
+        """Read back every launched loop-closure round, in one copy, and
+        apply its edges and logs in launch order."""
+        if not self._pending_lc:
+            return
+        results = iter(registration.resolve_async(
+            [p for _, _, _, pending in self._pending_lc for p in pending]))
+        for cand, records, kf, _ in self._pending_lc:
+            for i, record in zip(cand, records):
+                if self._apply_loop_result(self.keyframes[i], kf, next(results), record) \
+                        and record:
+                    kf.connect.append(i)
+        self._pending_lc = []
 
     def loop_closure(self):
         if len(self.keyframes) <= 3:
@@ -402,6 +467,21 @@ class GraphicEnd:
             frame = self._rng.randrange(len(self.keyframes) - 3)
             if frame not in checked:
                 checked.append(frame)
+
+        if self.batch_registrar is not None:
+            # every candidate is judged on its own, so the round is one
+            # batched launch, read back later (see the module docstring)
+            cand = nearby + checked
+            # record by position, not by membership: an index in both
+            # lists gets its edge twice (both of the reference's loops add
+            # one) and is logged and connected once
+            records = [False] * len(nearby) + [True] * len(checked)
+            pending = self.batch_registrar.dispatch_against_one(
+                self.kf_store, cand, self.curr_kf.features,
+                self._uniforms(len(cand)), self.loop_closure_inliers)
+            self._pending_lc.append((cand, records, self.keyframes[-1], pending))
+            return
+
         for n in nearby:
             self._try_loop_edge(self.keyframes[n], record=False)
         for frame in checked:
@@ -409,6 +489,7 @@ class GraphicEnd:
                 self.keyframes[-1].connect.append(frame)
 
     def lost_recovery(self, present: FrameFeatures):
+        self.drain_pending_loop_closures()
         new_id = self.curr_kf.id + 1
         self.kf_pos = self.robot
         self.curr_kf = Keyframe(id=new_id, frame_index=self.index, features=present)
@@ -426,10 +507,16 @@ class GraphicEnd:
             self.lost = 0
             return
         # brute-force re-localization against the whole history
-        # (src/GraphicEnd.cpp:810-836)
-        for i in range(len(self.keyframes) - 1):
-            T, norm, inl, ok = result_to_host(
-                self.multipnp(self.keyframes[i].features, self.curr_kf.features, 12))
+        # (src/GraphicEnd.cpp:810-836), batched or one pair at a time
+        cand = list(range(len(self.keyframes) - 1))
+        if self.batch_registrar is not None:
+            results = self.batch_registrar.run_against_one(
+                self.kf_store, cand, self.curr_kf.features,
+                self._uniforms(len(cand)), 12)
+        else:
+            results = (result_to_host(self.multipnp(
+                self.keyframes[i].features, self.curr_kf.features, 12)) for i in cand)
+        for i, (T, norm, inl, ok) in zip(cand, results):
             if not ok or inl < self.loop_closure_inliers or norm > self.loop_closure_error:
                 continue
             Z = se3.inverse(T)
@@ -445,20 +532,16 @@ class GraphicEnd:
         self._log("lc.txt", f"{frame1} {frame2} {norm:g} {inliers}\n")
 
     # -- post-hoc loop expansion (src/GraphicEnd.cpp:864-947) ---------------
-    def check(self, k1: int, k2: int) -> bool:
-        """Register keyframes k1 -> k2 and, on a pass, add the loop edge.
-        A pair checked before replays its cached verdict: the reference
-        re-checks pairs and adds duplicate edges each time
-        (src/GraphicEnd.cpp:887-915)."""
-        cached = self._check_cache.get((k1, k2))
-        if cached is None:
-            T, norm, inl, ok = result_to_host(self.multipnp(
-                self.keyframes[k1].features, self.keyframes[k2].features,
-                self.loop_closure_inliers))
-            passed = (bool(ok) and norm <= self.loop_closure_error
-                      and inl >= self.loop_closure_inliers)
-            cached = self._check_cache[(k1, k2)] = (passed, T)
-        passed, T = cached
+    def _passes(self, norm: float, inl: int, ok: bool) -> bool:
+        return bool(ok) and norm <= self.loop_closure_error \
+            and inl >= self.loop_closure_inliers
+
+    def _apply_check_verdict(self, k1: int, k2: int) -> bool:
+        """Replay the cached verdict of pair (k1, k2) and, on a pass, add
+        the loop edge. The reference re-checks pairs and adds duplicate
+        edges each time (src/GraphicEnd.cpp:887-915); replaying keeps that
+        accumulation of weight without registering again."""
+        passed, T = self._check_cache[(k1, k2)]
         if not passed:
             return False
         Z = se3.inverse(T)
@@ -471,9 +554,38 @@ class GraphicEnd:
         self._more_loops += 1
         return True
 
+    def check(self, k1: int, k2: int) -> bool:
+        """Register keyframes k1 -> k2, unless the pair was checked
+        before, and apply the verdict."""
+        if (k1, k2) not in self._check_cache:
+            T, norm, inl, ok = result_to_host(self.multipnp(
+                self.keyframes[k1].features, self.keyframes[k2].features,
+                self.loop_closure_inliers))
+            self._check_cache[(k1, k2)] = (self._passes(norm, inl, ok), T)
+        return self._apply_check_verdict(k1, k2)
+
+    def _scan_source(self, source: int):
+        """Fill the verdict cache for every unchecked pair (source, i) in
+        one batched round: a walk stops at its first failure, but a
+        verdict depends only on the pair, so the source is registered
+        against the whole history on its first touch and all its walks
+        replay from the cache."""
+        fresh = [i for i in range(len(self.keyframes))
+                 if i != source and (source, i) not in self._check_cache]
+        if not fresh:
+            return
+        results = self.batch_registrar.run_against_one(
+            self.kf_store, fresh, self.keyframes[source].features,
+            self._uniforms(len(fresh)), self.loop_closure_inliers,
+            single_is_target=False)
+        for i, (T, norm, inl, ok) in zip(fresh, results):
+            self._check_cache[(source, i)] = (self._passes(norm, inl, ok), T)
+
     def checknearby(self, source: int, target: int) -> List[int]:
         down = [i for i in range(target - 1, -1, -1) if i != source]
         up = [i for i in range(target + 1, len(self.keyframes)) if i != source]
+        if self.batch_registrar is not None and (down or up):
+            self._scan_source(source)
         checked = []
         for walk in (down, up):
             for i in walk:
@@ -492,6 +604,7 @@ class GraphicEnd:
     def save_final_result(self, fileaddr: str = ""):
         """Mirrors the reference in ignoring `fileaddr` and writing the
         fixed data-dir paths (src/GraphicEnd.cpp:661-682)."""
+        self.drain_pending_loop_closures()
         self.find_more_loops()
         self.opt.optimize(self.params.get_int("optimize_step"))
         os.makedirs(self.data_dir, exist_ok=True)
@@ -504,3 +617,65 @@ class GraphicEnd:
     generateKeyFrame = generate_keyframe  # noqa: N815
     loopClosure = loop_closure  # noqa: N815
     lostRecovery = lost_recovery  # noqa: N815
+
+
+class GraphicEnd2(GraphicEnd):
+    """Image-only frontend (reference src/GraphicEnd2.cpp): the whole
+    image as one pseudo-plane, no point clouds, no last-frame rescue."""
+
+    image_only = True
+
+    def _build_pipeline(self):
+        self.extract_img = pipeline.build_image_extractor(
+            self.detector_name, self.descriptor_name, self.intr, max_kp=self.max_kp)
+        self._multipnp = pipeline.build_multipnp_image(
+            self.intr, error_threshold=self.error_threshold,
+            match_floor=feat_registry.match_floor(self.descriptor_name))
+        self._u_shape = (self.hypotheses, 3)
+        self.batch_registrar = self._make_batch_registrar()
+
+    def readimage(self):
+        gray = images.load_gray(os.path.join(self.rgb_path, f"{self.index}.png"))
+        depth = images.load_depth(os.path.join(self.dep_path, f"{self.index}.png"))
+        self.curr_gray = torch.tensor(gray, device=self.device)
+        self.curr_depth = torch.from_numpy(depth.astype(np.int32)).to(self.device)
+
+    def _extract_present(self) -> FrameFeatures:
+        self.extractions += 1
+        return self.extract_img(self.curr_gray, self.curr_depth)
+
+    def run(self):
+        self.maybe_drain_loop_closures()
+        self._sync_odometry()
+        present = self._take_or_extract_present()
+        self.present = present
+
+        res = self.multipnp(self.curr_kf.features, present, 12)
+        self._dispatch_next_extract()
+        T, norm, inliers, ok = result_to_host(res)
+        T = se3.inverse(T)
+
+        if not ok:
+            self._log("error_of_transform.log", "9999\n")
+            self.lost += 1
+        elif norm > self.max_pos_change:
+            self._log("error_of_transform.log", f"{norm:g}\n")
+            self.robot = T @ self.kf_pos
+            self.generate_keyframe(T, present)
+            if self.loop_closure_detection:
+                self.loop_closure()
+            self.lost = 0
+        else:
+            self._log("error_of_transform.log", f"{norm:g}\n")
+            self.robot = T @ self.kf_pos
+            self.lost = 0
+
+        if self.lost > self.lost_frames:
+            self.lost_recovery(present)
+
+        self.index += 1
+        if self.use_odometry:
+            # clamp: after the last frame the index points one past the
+            # odometry table
+            self.odo_this = self.odometry[min(self.index, len(self.odometry)) - 1]
+        return 0

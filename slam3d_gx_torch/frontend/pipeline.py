@@ -6,15 +6,27 @@
   (src/GraphicEnd.cpp:128-134, 353-457) in the reference package's
   frame scope: one equalize + detect + describe pass per frame, keypoints
   assigned to planes by the analytic membership masks;
+- image-frame extraction mirrors GraphicEnd2::extractKPandDesp and its
+  zero-depth-dropping compute3dPosition (src/GraphicEnd2.cpp:203-233);
 - multipnp_planes follows GraphicEnd::multiPnP step for step
   (src/GraphicEnd.cpp:557-659): plane match -> per-pair pnp inliers
   pooled -> global RANSAC(8px) -> inlier gate -> re-RANSAC(3px,
-  extrinsic guess) -> norm gate; failure returns Identity.
+  extrinsic guess) -> norm gate; failure returns Identity;
+- multipnp_image follows GraphicEnd2::multiPnP (src/GraphicEnd2.cpp:
+  235-312): single match -> RANSAC(8px) -> inlier gate -> norm gate, no
+  second solve.
 
 Random draws are arguments: the extractor takes a plane sampler
-(ops/plane_ransac.py), multipnp the (P+2,B,3) PnP uniforms, one (B,3)
-block per solve in the reference's key-split order (P per-plane solves,
-the pooled solve, the 3px re-solve).
+(ops/plane_ransac.py), multipnp_planes the (P+2,H,3) PnP uniforms, one
+(H,3) block per solve in the reference's key-split order (P per-plane
+solves, the pooled solve, the 3px re-solve), multipnp_image one (H,3)
+block.
+
+Both multiPnP functions also take a batch of pairs: FrameFeatures with
+a leading axis B on every field and uniforms with the same leading
+axis. The B pairs then run as one batch of tensor operations (the
+reference vmaps the single-pair function), which is what the batched
+loop-closure verifier (parallel/registration.py) calls.
 """
 
 from __future__ import annotations
@@ -55,6 +67,18 @@ def compute_kp3d_plane(depth, uv, coeff, intr: CameraIntrinsics):
     z = torch.where(d > 0, z_meas, z_plane)
     return (torch.stack([k1 * z, k2 * z, z], dim=-1),
             torch.ones(uv.shape[:-1], dtype=torch.bool, device=uv.device))
+
+
+def compute_kp3d_drop(depth, uv, intr: CameraIntrinsics):
+    """GraphicEnd2 variant: zero-depth keypoints are dropped
+    (src/GraphicEnd2.cpp:221-225). Returns kp3d (...,K,3) and the
+    has-depth mask (...,K)."""
+    u, v = pixel_index(uv, *depth.shape)
+    d = depth[v, u].to(torch.float32)
+    z = d / intr.factor
+    k1 = (uv[..., 0] - intr.cx) / intr.fx
+    k2 = (uv[..., 1] - intr.cy) / intr.fy
+    return torch.stack([k1 * z, k2 * z, z], dim=-1), d > 0
 
 
 def build_plane_extractor(
@@ -128,10 +152,54 @@ def build_plane_extractor(
     return extract
 
 
+def build_image_extractor(detector_name: str, descriptor_name: str,
+                          intr: CameraIntrinsics, max_kp: int = 512) -> Callable:
+    """GraphicEnd2 path: the whole image is one pseudo-plane
+    (src/GraphicEnd2.cpp:133,156,203-212). Returns extract(gray, depth)
+    -> FrameFeatures with P = 1 and zero coefficients.
+
+    Detection runs on the raw gray image; keypoints without depth are
+    dropped before the descriptor pass, so their descriptors never count
+    as valid in the matcher."""
+    detect = registry.create_detector(detector_name, max_kp)
+    describe = registry.create_descriptor(descriptor_name)
+
+    def extract(gray, depth) -> FrameFeatures:
+        kps = detect(gray)
+        kp3d, has_depth = compute_kp3d_drop(depth, kps.uv, intr)
+        kps = kps._replace(valid=kps.valid & has_depth)
+        desc = describe(gray, kps)
+        dev = kps.uv.device
+        return FrameFeatures(
+            coeffs=torch.zeros((1, 4), dtype=torch.float32, device=dev),
+            plane_valid=torch.ones((1,), dtype=torch.bool, device=dev),
+            uv=kps.uv[None], kp3d=kp3d[None], desc=desc[None], kp_valid=kps.valid[None])
+
+    return extract
+
+
 def _finish(rvec, tvec, norm, inliers, accept) -> MultiPnPResult:
     T = lie.make_T(lie.rodrigues(rvec), tvec)
-    T = torch.where(accept, T, torch.eye(4, dtype=T.dtype, device=T.device))
+    T = torch.where(accept[..., None, None], T,
+                    torch.eye(4, dtype=T.dtype, device=T.device))
     return MultiPnPResult(T=T, norm=norm, inliers=inliers, ok=accept)
+
+
+def _as_batch(fa: FrameFeatures, fb: FrameFeatures, u: torch.Tensor):
+    """A single pair gets a leading batch axis of 1; returns (fa, fb, u,
+    whether it was single)."""
+    single = fa.uv.dim() == 3
+    if single:
+        fa = FrameFeatures(*(x[None] for x in fa))
+        fb = FrameFeatures(*(x[None] for x in fb))
+        u = u[None]
+    return fa, fb, u, single
+
+
+def _pose_norm_parts(res):
+    rn = torch.linalg.vector_norm(res.rvec, dim=-1)
+    tn = torch.linalg.vector_norm(res.tvec, dim=-1)
+    return torch.minimum(rn, 2 * math.pi - rn), tn
 
 
 def build_multipnp_planes(
@@ -142,9 +210,11 @@ def build_multipnp_planes(
 ) -> Callable:
     """GraphicEnd::multiPnP (src/GraphicEnd.cpp:557-659).
 
-    Returns multipnp(fa, fb, u, minimum_inliers) with u (P+2, B, 3)
-    uniforms: B hypotheses for each of the P per-plane solves, the pooled
-    solve and the 3 px solve.
+    Returns multipnp(fa, fb, u, minimum_inliers) with u (P+2, H, 3)
+    uniforms: H hypotheses for each of the P per-plane solves, the pooled
+    solve and the 3 px solve. With a leading batch axis B on the features
+    and on u, the B pairs are registered together and every field of the
+    result has that axis.
 
     refine_mode (config key `pnp_refine_mode`): "tiered" (default) skips
     the Gauss-Newton polish in the per-plane solves (only their inlier
@@ -159,43 +229,78 @@ def build_multipnp_planes(
 
     def multipnp(fa: FrameFeatures, fb: FrameFeatures, u: torch.Tensor,
                  minimum_inliers) -> MultiPnPResult:
-        P, K = fa.uv.shape[:2]
+        fa, fb, u, single = _as_batch(fa, fb, u)
+        B, P, K = fa.uv.shape[:3]
+        bi = torch.arange(B, device=fa.uv.device)[:, None]
         # plane match by (a,b,c,d) coefficients (src/GraphicEnd.cpp:561)
         pidx, _, pvalid = match.match_planes(
             fa.coeffs, fa.plane_valid, fb.coeffs, fb.plane_valid)
 
-        # per-plane-pair matching + pnp, the P pairs as one batch; only
+        # per-plane-pair matching + pnp, the B*P pairs as one batch; only
         # their inlier masks are pooled (src/GraphicEnd.cpp:572-595)
-        midx, mdist, mok = match.match_nn(fa.desc, fa.kp_valid, fb.desc[pidx],
-                                          fb.kp_valid[pidx])
-        good = match.good_match_filter(mdist, mok, floor=match_floor) & pvalid[:, None]
-        img = torch.gather(fb.uv[pidx], 1, midx[..., None].expand(P, K, 2))
-        res_p = pnp.solve_pnp_ransac(fa.kp3d, img, good, *cam, u[:P],
-                                     reproj_thresh=8.0, refine_iters=plane_iters)
+        midx, mdist, mok = match.match_nn(fa.desc, fa.kp_valid, fb.desc[bi, pidx],
+                                          fb.kp_valid[bi, pidx])
+        good = match.good_match_filter(mdist, mok, floor=match_floor) & pvalid[..., None]
+        img = torch.gather(fb.uv[bi, pidx], 2, midx[..., None].expand(B, P, K, 2))
+        res_p = pnp.solve_pnp_ransac(
+            fa.kp3d.reshape(B * P, K, 3), img.reshape(B * P, K, 2),
+            good.reshape(B * P, K), *cam, u[:, :P].reshape(B * P, -1, 3),
+            reproj_thresh=8.0, refine_iters=plane_iters)
 
-        obj = fa.kp3d.reshape(P * K, 3)
-        img = img.reshape(P * K, 2)
-        pooled = (res_p.inliers & res_p.ok[:, None]).reshape(P * K)
+        obj = fa.kp3d.reshape(B, P * K, 3)
+        img = img.reshape(B, P * K, 2)
+        pooled = (res_p.inliers & res_p.ok[:, None]).reshape(B, P * K)
 
         # global RANSAC at 8 px (src/GraphicEnd.cpp:595)
-        res1 = pnp.solve_pnp_ransac(obj, img, pooled, *cam, u[P],
+        res1 = pnp.solve_pnp_ransac(obj, img, pooled, *cam, u[:, P],
                                     reproj_thresh=POOLED_REPROJ,
                                     refine_iters=pooled_iters)
         n1 = res1.n_inliers
-        have_any = pooled.sum() >= 3
+        have_any = pooled.sum(dim=-1) >= 3
 
         # refine on inliers at 3px with extrinsic guess (src/GraphicEnd.cpp:615)
-        res2 = pnp.solve_pnp_ransac(obj, img, res1.inliers, *cam, u[P + 1],
+        res2 = pnp.solve_pnp_ransac(obj, img, res1.inliers, *cam, u[:, P + 1],
                                     reproj_thresh=3.0, guess_rvec=res1.rvec,
                                     guess_tvec=res1.tvec)
 
-        rn = torch.linalg.vector_norm(res2.rvec)
-        tn = torch.linalg.vector_norm(res2.tvec)
-        norm = torch.abs(torch.minimum(rn, 2 * math.pi - rn)) + 0.9 * torch.abs(tn)
+        rot, tn = _pose_norm_parts(res2)
+        norm = torch.abs(rot) + 0.9 * torch.abs(tn)
         enough = (n1 >= minimum_inliers) & res1.ok & have_any
         accept = enough & (norm <= error_threshold) & res2.ok
         # the reference reports norm/inliers even when gated
         # (src/GraphicEnd.cpp:620-624)
-        return _finish(res2.rvec, res2.tvec, torch.where(enough, norm, 0.0), n1, accept)
+        out = _finish(res2.rvec, res2.tvec, torch.where(enough, norm, 0.0), n1, accept)
+        return MultiPnPResult(*(a[0] for a in out)) if single else out
+
+    return multipnp
+
+
+def build_multipnp_image(intr: CameraIntrinsics, error_threshold: float = 1.0,
+                         match_floor: float = 0.0) -> Callable:
+    """GraphicEnd2::multiPnP (src/GraphicEnd2.cpp:235-312): the single
+    pseudo-plane, one RANSAC at 8 px with the full polish, the inlier
+    gate, the norm |min(rn, 2pi - rn) + tn|, no second solve.
+
+    Returns multipnp(fa, fb, u, minimum_inliers) with u (H, 3) uniforms,
+    or (B, H, 3) for a batch of B pairs (see build_multipnp_planes)."""
+    cam = (intr.fx, intr.fy, intr.cx, intr.cy)
+
+    def multipnp(fa: FrameFeatures, fb: FrameFeatures, u: torch.Tensor,
+                 minimum_inliers) -> MultiPnPResult:
+        fa, fb, u, single = _as_batch(fa, fb, u)
+        B, _, K = fa.uv.shape[:3]
+        midx, mdist, mok = match.match_nn(fa.desc[:, 0], fa.kp_valid[:, 0],
+                                          fb.desc[:, 0], fb.kp_valid[:, 0])
+        good = match.good_match_filter(mdist, mok, floor=match_floor)
+        img = torch.gather(fb.uv[:, 0], 1, midx[..., None].expand(B, K, 2))
+        res = pnp.solve_pnp_ransac(fa.kp3d[:, 0], img, good, *cam, u,
+                                   reproj_thresh=POOLED_REPROJ)
+        rot, tn = _pose_norm_parts(res)
+        norm = torch.abs(rot + tn)
+        enough = (res.n_inliers >= minimum_inliers) & res.ok & (good.sum(dim=-1) > 0)
+        accept = enough & (norm <= error_threshold)
+        out = _finish(res.rvec, res.tvec, torch.where(enough, norm, 0.0),
+                      res.n_inliers, accept)
+        return MultiPnPResult(*(a[0] for a in out)) if single else out
 
     return multipnp

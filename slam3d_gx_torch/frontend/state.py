@@ -52,17 +52,23 @@ class Keyframe:
 
 
 def pack_result(res: MultiPnPResult) -> torch.Tensor:
-    """Flatten a result into one (19,) fp32 tensor: T (16), norm,
-    inliers, ok — so the host pays one device-to-host copy per result."""
+    """Flatten a result into one (...,19) fp32 tensor: T (16), norm,
+    inliers, ok — so the host pays one device-to-host copy per result,
+    or per batch of results."""
     tail = torch.stack([res.norm.to(torch.float32), res.inliers.to(torch.float32),
                         res.ok.to(torch.float32)], dim=-1)
     return torch.cat([res.T.reshape(res.T.shape[:-2] + (16,)).to(torch.float32), tail],
                      dim=-1)
 
 
+def unpack_result_row(row: np.ndarray):
+    """One packed (19,) host row -> (np 4x4 T float64, float norm, int
+    inliers, bool ok)."""
+    return (row[:16].astype(np.float64).reshape(4, 4), float(row[16]),
+            int(row[17]), bool(row[18] != 0.0))
+
+
 def result_to_host(res: MultiPnPResult):
     """Device result -> (np 4x4 T float64, float norm, int inliers, bool
     ok), with one `.cpu()` of the packed row."""
-    row = pack_result(res).cpu().numpy()
-    return (row[:16].astype(np.float64).reshape(4, 4), float(row[16]),
-            int(row[17]), bool(row[18] != 0.0))
+    return unpack_result_row(pack_result(res).cpu().numpy())

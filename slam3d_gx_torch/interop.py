@@ -9,9 +9,14 @@ first.
 Draws: the JAX plane RANSAC picks each round's triplets with
 `jax.random.categorical`, i.e. the argmax of Gumbel noise over the
 remaining points; `plane_sampler` replays it from that noise. The JAX
-PnP RANSAC draws `jax.random.uniform(key, (B,3))` per solve;
+PnP RANSAC draws `jax.random.uniform(key, (H,3))` per solve;
 `pnp_uniforms` stacks those blocks in the order the port's multiPnP
-consumes them.
+consumes them: for a plane pair the blocks of `jax.random.split(key,
+P+2)`, for an image pair the one block of the key itself (no split).
+A batched round gives pair i the key `jax.random.split(key, B)[i]`
+(the frontends split `key` once more per chunk of 32 first);
+`pnp_uniforms_batch` stacks the pairs' draws into the batch the port's
+batched multiPnP takes.
 """
 
 from __future__ import annotations
@@ -41,6 +46,15 @@ def features_from_numpy(arrays, device) -> FrameFeatures:
     return FrameFeatures(**out)
 
 
+def stacked_features_from_numpy(frames: Sequence, device) -> FrameFeatures:
+    """A sequence of frames, each as `features_from_numpy` takes it (a
+    plane frame, or an image frame with its one pseudo-plane) -> one
+    FrameFeatures with a leading batch axis, as the batched multiPnP
+    takes it."""
+    each = [features_from_numpy(f, device) for f in frames]
+    return FrameFeatures(*(torch.stack(field) for field in zip(*each)))
+
+
 def features_to_numpy(feats: FrameFeatures) -> dict:
     """The port's FrameFeatures -> {field: numpy array} on the host."""
     return {name: getattr(feats, name).cpu().numpy() for name in _FIELDS}
@@ -58,4 +72,12 @@ def pnp_uniforms(blocks: Sequence[np.ndarray], device) -> torch.Tensor:
     """Per-solve (B,3) uniforms (`jax.random.uniform(k, (B,3))` for each
     split key k, in the reference's order) -> one (S,B,3) tensor."""
     return torch.as_tensor(np.stack([np.asarray(b, np.float32) for b in blocks]),
+                           device=device)
+
+
+def pnp_uniforms_batch(pairs: Sequence, device) -> torch.Tensor:
+    """The draws of a batched round, one entry a pair: for a plane pair
+    its P+2 (H,3) blocks -> (B,P+2,H,3); for an image pair its one (H,3)
+    block -> (B,H,3)."""
+    return torch.as_tensor(np.stack([np.asarray(p, np.float32) for p in pairs]),
                            device=device)

@@ -4,21 +4,24 @@
 |---|---|---|
 | K1 `histogram256` | `_hist_kernel` / `_histogram256_pallas` | csrc/equalize.cu |
 | K2 `apply_lut256` | `_lut_kernel` / `_apply_lut256_pallas` | csrc/equalize.cu |
+| K3 `min_eig_response` | `_min_eig_kernel` / `min_eig_response_fused` | csrc/min_eig.cu |
 
-K3 (`_min_eig_kernel`, the GFTT response) is not on this package's
-path yet.
+These are all the TPU kernels of the JAX package.
 """
 
-from . import build, equalize  # noqa: F401
+from . import build, equalize, min_eig  # noqa: F401
 from .equalize import apply_lut256, histogram256  # noqa: F401
+from .min_eig import min_eig_response  # noqa: F401
 
-SOURCES = (equalize.SOURCE,)
+SOURCES = (equalize.SOURCE, min_eig.SOURCE)
+_MODULES = (equalize, min_eig)
 
 
 def launch_counts() -> dict:
     """Launches of every kernel since the last `reset_counts`."""
-    return dict(equalize.LAUNCHES)
+    return {k: v for m in _MODULES for k, v in m.LAUNCHES.items()}
 
 
 def reset_counts() -> None:
-    equalize.reset_counts()
+    for m in _MODULES:
+        m.reset_counts()

@@ -1,23 +1,24 @@
 """Detector/descriptor factory behind the reference's config names
 (counterpart of slam3d_gx_tpu/ops/features/registry.py).
 
-This package carries SIFT only (DoG detector, SIFT descriptor). Every
-other name of the reference's zoo raises NotImplementedError naming the
-ROADMAP.md item that ports it.
+Carried: the detectors SIFT (DoG), GFTT (Shi-Tomasi, kernel K3 on the
+card) and HARRIS, and the SIFT descriptor. Every other name of the
+reference's zoo raises NotImplementedError naming the ROADMAP.md item
+that ports it.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
-from . import dog, sift_desc
-from .common import Keypoints
+import torch
+
+from . import dog, harris, sift_desc
+from .common import Keypoints, apply_mask
 
 # names of the reference's zoo that later slices port (ROADMAP.md queue 1)
 _LATER = {
-    "GFTT": "item 14 (GFTT/HARRIS, kernel K3)",
-    "HARRIS": "item 14 (GFTT/HARRIS, kernel K3)",
     "SURF": "item 15 (detector and descriptor zoo)",
     "SURF_SIFT": "item 15 (detector and descriptor zoo)",
     "SURF-SIFT": "item 15 (detector and descriptor zoo)",
@@ -38,10 +39,24 @@ def _unsupported(kind: str, name: str):
 
 
 def create_detector(name: str, max_kp: int = 512) -> Callable[..., Keypoints]:
-    """Returns detect(img) -> Keypoints."""
-    if name.strip().upper() != "SIFT":
+    """Returns detect(img, mask=None) -> Keypoints."""
+    key = name.strip().upper()
+    if key == "SIFT":
+        base = functools.partial(dog.detect_sift, max_kp=max_kp)
+    elif key == "GFTT":
+        base = functools.partial(harris.detect_gftt, max_kp=max_kp)
+    elif key == "HARRIS":
+        base = functools.partial(harris.detect_gftt, max_kp=max_kp, use_harris=True)
+    else:
         raise _unsupported("detector", name)
-    return functools.partial(dog.detect_sift, max_kp=max_kp)
+
+    def detect(img, mask: Optional[torch.Tensor] = None) -> Keypoints:
+        kps = base(img)
+        if mask is not None:
+            kps = apply_mask(kps, mask)
+        return kps
+
+    return detect
 
 
 def create_descriptor(name: str):

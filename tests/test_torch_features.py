@@ -109,11 +109,14 @@ def test_sift_descriptors_within_one(frame):
 
 
 def test_registry_carries_sift_only():
+    """SIFT is the one descriptor; of the detectors, GFTT and HARRIS are
+    carried too (tests/test_torch_gftt.py) and the rest still raise."""
     assert treg.create_descriptor("sift") is tdesc.sift_descriptors
     assert treg.match_floor("SIFT") == 0.0 and treg.match_floor("ORB") == 5.0
-    for name in ("GFTT", "ORB", "SURF", "FAST"):
+    for name in ("STAR", "ORB", "SURF", "FAST"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             treg.create_detector(name)
+    assert callable(treg.create_detector("GFTT"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         treg.create_descriptor("SURF")
     with pytest.raises(ValueError):

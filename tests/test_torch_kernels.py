@@ -120,7 +120,8 @@ def test_wrappers_count_only_kernel_launches():
     kernels.reset_counts()
     img = torch.from_numpy(images()["random"])
     timg.equalize_hist(img)
-    assert kernels.launch_counts() == {"histogram256": 0, "apply_lut256": 0}
+    assert kernels.launch_counts() == {"histogram256": 0, "apply_lut256": 0,
+                                       "min_eig_response": 0}
 
 
 def test_wrappers_refuse_a_device_without_a_kernel():
@@ -134,5 +135,6 @@ def test_wrappers_refuse_a_device_without_a_kernel():
 def test_wrappers_have_no_fallback_from_the_kernel():
     """On a CUDA tensor the wrapper launches the kernel or raises: no
     `try` around the launch may route to the plain version."""
-    tree = ast.parse((REPO / "slam3d_gx_torch" / "kernels" / "equalize.py").read_text())
-    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    for module in ("equalize.py", "min_eig.py"):
+        tree = ast.parse((REPO / "slam3d_gx_torch" / "kernels" / module).read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], module
