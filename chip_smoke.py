@@ -9,26 +9,36 @@ Phases, each of which must pass or the script exits non-zero:
    (one nvcc per source, all started together) and print ptxas' report;
 3. hold each kernel against its plain PyTorch version on the card: K1
    and K2 exactly (480x640, a constant image, an image with empty bins,
-   ragged 37x53 and 1x1); K3 within 1e-6 of the image's largest box sum
-   (480x640 uint8 and f32, constant, 37x53, 1x7, 7x1, a non-contiguous
-   view), also against the plain version run on the CPU.
+   ragged 37x53 and 1x1); the fused `equalize_hist256` exactly, against
+   its plain version on the card and on the CPU (those cases and: one
+   non-zero pixel, two values one of them on a single pixel, an image
+   whose LUT products land on .5 ties, a skewed frame, a non-contiguous
+   and a 16-byte-misaligned view, float32 input, 1080x1920 for the loop
+   form, and 1,000 back-to-back calls on alternating images without a
+   synchronise between them); K3 within 1e-6 of the image's largest box
+   sum (480x640 uint8 and f32, constant, 37x53, 1x7, 7x1, a
+   non-contiguous view), also against the plain version run on the CPU.
    Then time kernel, plain version and, where there is one, one PyTorch
    library call on the card (torch.profiler's device times, median of
    200 calls after warm-up), and one wrapper call on the stream with
-   CUDA events;
+   CUDA events; beside `equalize_hist256`, the two-kernel composition it
+   replaced (K1, `equalize_lut`, K2) with its device operations, and an
+   empty kernel launched in the same shape;
 4. `equalize_hist` on the card against the plain CPU path, exactly;
 5. the plane path: `run_SLAM 29` (slam3d_gx_torch.cli.run_slam.run) over a
    synthetic 30-frame 640x480 orbit with the repo's parameters.yaml
    defaults (SIFT/SIFT, 512 keypoints, 256 hypotheses, loop closure on
    and batched), with every kernel's launch count set to 0 just before
    it and read just after; checks the four output files, the keyframe
-   count, ATE against the ground truth (< 0.05 m) and that K1 and K2 ran
-   once per frame extraction;
+   count, ATE against the ground truth (< 0.05 m) and that
+   `equalize_hist256` ran once per frame extraction, K1 and K2 not at all;
 6. the image-only path: `run_SLAM_imageonly 29`
    (slam3d_gx_torch.cli.run_slam_imageonly) on the same orbit with
    GFTT/SIFT, counts reset and read the same way: the same checks, K3
-   once per extraction, K1 and K2 not at all, the batched verifier used;
-7. a short plane run with GFTT: K1, K2 and K3 once per extraction each;
+   once per extraction, none of the equalize kernels, the batched
+   verifier used;
+7. a short plane run with GFTT: `equalize_hist256` and K3 once per
+   extraction each;
 8. the per-frame stages of both paths (extract, multiPnP) re-run on the
    last frame, and one batched round of N candidates against N single
    registrations: wall ms, device-busy ms and device operations.
@@ -36,6 +46,11 @@ Phases, each of which must pass or the script exits non-zero:
 Prints a `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA device it exits 2 and
 prints no result.
+
+    python3 chip_smoke.py --kernels   # phases 1-4 only
+    python3 chip_smoke.py --sweep     # phases 1-2, then equalize_hist256 in
+                                      # clusters of 8 and 16 blocks against K1 + K2
+                                      # from 480x640 to 2160x3840
 """
 
 from __future__ import annotations
@@ -74,9 +89,9 @@ def device_ms(fn, calls: int = 200, warmup: int = 20):
     """Device time of one call of `fn`: every kernel, memset and copy it
     launches, each at its median duration over `calls` calls, as
     torch.profiler records them on the card. Host time between launches
-    does not count. Returns (ms, method); when the profiler records no
-    device activity, falls back to CUDA events around each call, which
-    then include the host's launch gaps."""
+    does not count. Returns (ms, method, device operations a call); when
+    the profiler records no device activity, falls back to CUDA events
+    around each call, which then include the host's launch gaps."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -92,13 +107,15 @@ def device_ms(fn, calls: int = 200, warmup: int = 20):
             durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if durations:
         us = sum(statistics.median(v) * len(v) / calls for v in durations.values())
-        return us / 1e3, "profiler"
-    return event_ms(fn, calls), "events"
+        return us / 1e3, "profiler", sum(len(v) for v in durations.values()) / calls
+    return event_ms(fn, calls), "events", None
 
 
-def event_ms(fn, calls: int = 200) -> float:
+def event_ms(fn, calls: int = 200, warmup: int = 20) -> float:
     """Median of CUDA-event times around each call: what one call costs
     the stream, launch gaps included."""
+    for _ in range(warmup):
+        fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(calls)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(calls)]
     for s, e in zip(starts, ends):
@@ -107,6 +124,21 @@ def event_ms(fn, calls: int = 200) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def host_us(fn, calls: int = 200, warmup: int = 20) -> float:
+    """Median host time of one call of `fn`, in us: what issuing it costs
+    the Python thread, whatever the card does meanwhile."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 def bound(nbytes: int, ops: int):
@@ -145,6 +177,134 @@ def check_equalize_kernels(dev, kernels, equalize):
                 raise AssertionError(f"{k} differs from its plain version on {name}: {diff}")
         print(f"  {name}: histogram256 and apply_lut256 exact", flush=True)
     return err
+
+
+def equalize_cases():
+    """uint8 images that exercise `equalize_hist256`'s corners."""
+    rng = np.random.default_rng(7)
+    one = np.zeros((H, W), np.uint8)
+    one[H // 3, W // 5] = 9
+    single_low = np.full((H, W), 200, np.uint8)
+    single_low[0, 0] = 3  # total - h0 = n - 1, the first bin holds one pixel
+    # total - h0 = 510, so scale = 0.5 and every odd cumulative count is a tie
+    ties = np.concatenate([[0, 0, 1], np.repeat(np.arange(2, 256), 2), [255]])
+    return {
+        "480x640": rng.integers(0, 256, (H, W)),
+        "constant": np.full((H, W), 77),
+        "empty_bins": rng.choice([0, 3, 128, 255], (H, W)),
+        "skewed": np.clip(rng.normal(60, 9, (H, W)), 0, 255),
+        "37x53": rng.integers(0, 256, (37, 53)),
+        "1x1": np.array([[200]]),
+        "one non-zero pixel": one,
+        "total - h0 == 1": np.where(one > 0, 200, 31),
+        "one pixel in the first bin": single_low,
+        ".5 ties": rng.permutation(ties).reshape(16, 32),
+        "1080x1920 (loop form)": rng.integers(0, 256, (1080, 1920)),
+    }
+
+
+def check_equalize_hist256(dev, kernels, equalize):
+    """The fused kernel against its plain version, exactly (tolerance 0:
+    every value is an integer, and the LUT's two float32 operations are
+    single IEEE operations on both sides). The truth is the plain version
+    on the CPU; the plain version on the card is compared too."""
+    def held(name, x_dev, x_cpu):
+        got = kernels.equalize_hist256(x_dev)
+        torch.cuda.synchronize()
+        want = equalize.equalize_hist256_plain(x_cpu)
+        on_card = equalize.equalize_hist256_plain(x_dev).cpu()
+        assert got.shape == x_cpu.shape and got.dtype == torch.uint8, name
+        diff = int((got.cpu().int() - want.int()).abs().max())
+        diff_card = int((got.cpu().int() - on_card.int()).abs().max())
+        print(f"  {name}: equalize_hist256 max abs err {diff} against the plain version "
+              f"on the CPU, {diff_card} against it on the card", flush=True)
+        if diff != 0 or diff_card != 0:
+            raise AssertionError(f"equalize_hist256 differs from its plain version on {name}")
+
+    cases = {k: torch.from_numpy(v.astype(np.uint8)) for k, v in equalize_cases().items()}
+    for name, img in cases.items():
+        held(name, img.to(dev), img)
+    img = cases["480x640"]
+    held("float32 input", img.to(dev).float(), img.float())
+    wide = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (H, 2 * W)).astype(np.uint8))
+    held("non-contiguous view", wide.to(dev)[:, ::2], wide[:, ::2])
+    held("misaligned view", img.to(dev).reshape(-1)[1:], img.reshape(-1)[1:])
+
+    # a barrier or a table that one launch leaves unclean shows in the next
+    pair = [cases["480x640"].to(dev), cases["skewed"].to(dev)]
+    want = [equalize.equalize_hist256_plain(cases[k]).to(dev) for k in ("480x640", "skewed")]
+    outs = [kernels.equalize_hist256(pair[i % 2]) for i in range(1000)]
+    torch.cuda.synchronize()
+    bad = [i for i, o in enumerate(outs) if not torch.equal(o, want[i % 2])]
+    print(f"  1,000 back-to-back calls on alternating images: {len(bad)} wrong", flush=True)
+    if bad:
+        raise AssertionError(f"equalize_hist256: back-to-back calls {bad[:10]} are wrong")
+    return 0
+
+
+def time_equalize_hist256(dev, kernels, equalize):
+    """The fused kernel at the main path's shape (the 480x640 uint8 gray
+    frame) beside its plain version, the two-kernel composition it
+    replaced and an empty kernel launched in the same shape. No single
+    PyTorch call computes equalizeHist."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.uint8)).to(dev)
+    n = x.numel()
+
+    def old():
+        return kernels.apply_lut256(x, equalize.equalize_lut(kernels.histogram256(x), n))
+
+    # the image read once and written once; a count and a lookup a pixel
+    b, by = bound(2 * n, 2 * n)
+    ms, how, ops = device_ms(lambda: kernels.equalize_hist256(x))
+    old_ms, _, old_ops = device_ms(old)
+    empty_ms = device_ms(lambda: equalize.launch_empty(x.device))[0]
+    r = dict(ms=ms, plain_ms=device_ms(lambda: equalize.equalize_hist256_plain(x))[0],
+             library_ms=None, bound_ms=b, bound_by=by,
+             stream_ms=event_ms(lambda: kernels.equalize_hist256(x)))
+    print(f"  equalize_hist256 at {H}x{W} ({how}): kernel {r['ms'] * 1e3:.3f} us in {ops:g} "
+          f"device operation(s), plain {r['plain_ms'] * 1e3:.3f} us, library none, bound "
+          f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); one wrapper call on the stream "
+          f"{r['stream_ms'] * 1e3:.3f} us, on the host "
+          f"{host_us(lambda: kernels.equalize_hist256(x)):.3f} us", flush=True)
+    print(f"  the composition it replaced (histogram256, equalize_lut, apply_lut256): "
+          f"{old_ms * 1e3:.3f} us in {old_ops:g} device operations; one call on the stream "
+          f"{event_ms(old) * 1e3:.3f} us, on the host {host_us(old):.3f} us", flush=True)
+    other = {"a constant image": torch.full_like(x, 77),
+             "a skewed frame": torch.from_numpy(
+                 np.clip(rng.normal(60, 9, (H, W)), 0, 255).astype(np.uint8)).to(dev)}
+    print("  equalize_hist256 on " + ", ".join(
+        f"{k} {device_ms(lambda: kernels.equalize_hist256(v))[0] * 1e3:.3f} us"
+        for k, v in other.items()) + " (its counting does not depend on the data)", flush=True)
+    print(f"  an empty kernel in the same launch shape (one cluster of "
+          f"{equalize.CLUSTER_BLOCKS} blocks of 1,024 threads): {empty_ms * 1e3:.3f} us",
+          flush=True)
+    return r
+
+
+def sweep_equalize(dev, kernels, equalize):
+    """Device time of `equalize_hist256` in clusters of 8 and of 16 blocks
+    against K1 + K2 alone (their memset included, the LUT given), from
+    the main path's frame up to 2160x3840: which cluster size, and from
+    which image size on one cluster loses to two full-width launches."""
+    rng = np.random.default_rng(11)
+    lut = torch.from_numpy(np.sort(rng.integers(0, 256, 256)).astype(np.float32)).to(dev)
+    for h, w in ((H, W), (720, 1280), (1080, 1920), (2160, 3840)):
+        x = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.uint8)).to(dev)
+        flat = x.reshape(-1)
+        want = equalize.equalize_hist256_plain(x.cpu()).reshape(-1)
+        us = {}
+        for blocks in (8, 16):
+            assert torch.equal(equalize._launch_equalize256(flat, blocks).cpu(), want), blocks
+            us[blocks] = device_ms(lambda: equalize._launch_equalize256(flat, blocks))[0] * 1e3
+        k12 = device_ms(lambda: (kernels.histogram256(x), kernels.apply_lut256(x, lut)))[0] * 1e3
+        b = bound(2 * x.numel(), 2 * x.numel())[0] * 1e3
+        print(f"  {h}x{w}: equalize_hist256 {us[8]:.3f} us in a cluster of 8, {us[16]:.3f} us "
+              f"in a cluster of 16; histogram256 + apply_lut256 {k12:.3f} us; bound {b:.3f} us",
+              flush=True)
+    for blocks in (8, 16):
+        us = device_ms(lambda: equalize.launch_empty(dev, blocks))[0] * 1e3
+        print(f"  an empty kernel in a cluster of {blocks}: {us:.3f} us", flush=True)
 
 
 K3_REL_TOL = 1e-6  # of the image's largest box sum
@@ -205,7 +365,7 @@ def time_min_eig(dev, kernels, min_eig):
     row = None
     for label, x in (("uint8", x8), ("f32", x32)):
         b, by = bound(x.numel() * x.element_size() + 4 * n, ops)
-        ms, how = device_ms(lambda: kernels.min_eig_response(x))
+        ms, how, _ = device_ms(lambda: kernels.min_eig_response(x))
         r = dict(ms=ms, plain_ms=device_ms(lambda: min_eig.min_eig_response_plain(x))[0],
                  library_ms=None, bound_ms=b, bound_by=by,
                  stream_ms=event_ms(lambda: kernels.min_eig_response(x)))
@@ -237,7 +397,7 @@ def time_equalize_kernels(dev, kernels, equalize):
     rows = {}
     for name, (nbytes, ops, kernel, plain, library) in calls.items():
         b, by = bound(nbytes, ops)
-        ms, how = device_ms(kernel)
+        ms, how, _ = device_ms(kernel)
         rows[name] = dict(ms=ms, plain_ms=device_ms(plain)[0], library_ms=device_ms(library)[0],
                           bound_ms=b, bound_by=by, stream_ms=event_ms(kernel))
         r = rows[name]
@@ -394,7 +554,7 @@ def stage_times(ge, work: str, rounds: bool) -> None:
                                                  ge.loop_closure_inliers)) for i in cand])
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
               file=sys.stderr)
@@ -418,10 +578,18 @@ def main() -> int:
     for name, rep in reports.items():
         print("\n".join(f"  [{name}] {ln}" for ln in rep.strip().splitlines()), flush=True)
 
+    if "--sweep" in argv:
+        phase("equalize_hist256: cluster sizes and image sizes")
+        sweep_equalize(dev, kernels, equalize)
+        return 0
+
     phase("kernels against their plain versions")
+    kernels.reset_counts()
     err = check_equalize_kernels(dev, kernels, equalize)
+    err["equalize_hist256"] = check_equalize_hist256(dev, kernels, equalize)
     err["min_eig_response"] = check_min_eig(dev, kernels, min_eig)
     timing = time_equalize_kernels(dev, kernels, equalize)
+    timing["equalize_hist256"] = time_equalize_hist256(dev, kernels, equalize)
     timing["min_eig_response"] = time_min_eig(dev, kernels, min_eig)
 
     phase("equalize_hist on the card against the CPU")
@@ -432,6 +600,10 @@ def main() -> int:
         got = imageproc.equalize_hist(x.to(dev)).cpu()
         assert torch.equal(got, imageproc.equalize_hist(x)), "equalize_hist differs"
     print("  exact on random, skewed and constant images", flush=True)
+    # K1 and K2 run on no path: their launches are those of phases 3 and 4
+    off_path = kernels.launch_counts()
+    if "--kernels" in argv:
+        return 0
 
     base = tempfile.mkdtemp(prefix="chip_smoke_")
     root, traj = write_dataset(base)
@@ -440,45 +612,55 @@ def main() -> int:
     work_planes = write_run_dir(base, "planes", root)
     launches, ge_planes = run_path(
         kernels, run_slam.run, work_planes, traj, FRAMES - 1,
-        {"histogram256": True, "apply_lut256": True, "min_eig_response": False})
+        {"equalize_hist256": True, "histogram256": False, "apply_lut256": False,
+         "min_eig_response": False})
 
     phase("image-only path: run_SLAM_imageonly on the same orbit (GFTT)")
     work_image = write_run_dir(base, "image", root, detector_name="GFTT",
                                descriptor_name="SIFT")
     launches_image, ge_image = run_path(
         kernels, run_slam_imageonly.main, work_image, traj, FRAMES - 1,
-        {"histogram256": False, "apply_lut256": False, "min_eig_response": True})
+        {"equalize_hist256": False, "histogram256": False, "apply_lut256": False,
+         "min_eig_response": True})
     assert ge_image.image_only and ge_image.params.get_int("loop_closure_batched") == 1
     assert ge_image.batch_registrar.calls > 0, "the batched verifier was not used"
     launches["min_eig_response"] = launches_image["min_eig_response"]
 
-    phase("plane path with GFTT, a few frames: K1, K2 and K3 once per extraction")
+    phase("plane path with GFTT, a few frames: equalize_hist256 and K3 once per extraction")
     work_gftt = write_run_dir(base, "planes_gftt", root, detector_name="GFTT",
                               descriptor_name="SIFT")
     run_path(kernels, run_slam.run, work_gftt, traj, 4,
-             {"histogram256": True, "apply_lut256": True, "min_eig_response": True},
+             {"equalize_hist256": True, "histogram256": False, "apply_lut256": False,
+              "min_eig_response": True},
              min_keyframes=1)
 
     phase("per-frame stages, re-run on each path's last frame")
     stage_times(ge_planes, work_planes, rounds=False)
     stage_times(ge_image, work_image, rounds=True)
 
-    sources = {"histogram256": ("slam3d_gx_torch/csrc/equalize.cu",
-                                "slam3d_gx_tpu/ops/pallas_kernels.py:24"),
-               "apply_lut256": ("slam3d_gx_torch/csrc/equalize.cu",
-                                "slam3d_gx_tpu/ops/pallas_kernels.py:102"),
-               "min_eig_response": ("slam3d_gx_torch/csrc/min_eig.cu",
-                                    "slam3d_gx_tpu/ops/pallas_kernels.py:144")}
+    tpu = "slam3d_gx_tpu/ops/pallas_kernels.py"
+    eq_cu = "slam3d_gx_torch/csrc/equalize.cu"
+    sources = {"equalize_hist256": (eq_cu, [f"{tpu}:24", f"{tpu}:102"], True),
+               "histogram256": (eq_cu, f"{tpu}:24", False),
+               "apply_lut256": (eq_cu, f"{tpu}:102", False),
+               "min_eig_response": ("slam3d_gx_torch/csrc/min_eig.cu", f"{tpu}:144", True)}
     rows = []
-    for name, (source, replaces) in sources.items():
+    covered = set()
+    for name, (source, replaces, on_path) in sources.items():
         t = timing[name]
-        assert launches[name] > 0, f"{name} was not launched on its path"
+        count = launches[name] if on_path else off_path[name]
+        assert count > 0, f"{name} was not launched"
+        if on_path:
+            covered.update([replaces] if isinstance(replaces, str) else replaces)
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "ok": True, "launches": launches[name], "max_abs_err": err[name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "ok": True, "on_main_path": on_path, "launches": count,
+            "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
         })
+    missing = {f"{tpu}:{line}" for line in (24, 102, 144)} - covered
+    assert not missing, f"no kernel launched on a path replaces {sorted(missing)}"
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -487,4 +669,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,6 +2,7 @@
 
 | kernel | replaces (slam3d_gx_tpu/ops/pallas_kernels.py) | source |
 |---|---|---|
+| `equalize_hist256` (the main path's) | `_hist_kernel` and `_lut_kernel` in one launch | csrc/equalize.cu |
 | K1 `histogram256` | `_hist_kernel` / `_histogram256_pallas` | csrc/equalize.cu |
 | K2 `apply_lut256` | `_lut_kernel` / `_apply_lut256_pallas` | csrc/equalize.cu |
 | K3 `min_eig_response` | `_min_eig_kernel` / `min_eig_response_fused` | csrc/min_eig.cu |
@@ -10,7 +11,7 @@ These are all the TPU kernels of the JAX package.
 """
 
 from . import build, equalize, min_eig  # noqa: F401
-from .equalize import apply_lut256, histogram256  # noqa: F401
+from .equalize import apply_lut256, equalize_hist256, histogram256  # noqa: F401
 from .min_eig import min_eig_response  # noqa: F401
 
 SOURCES = (equalize.SOURCE, min_eig.SOURCE)

@@ -3,13 +3,16 @@
 Each source becomes one shared library with a plain C interface
 (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`), built at first use into `slam3d_gx_torch/_build/` (listed in
-.gitignore) and reused by later calls of the same process. `build_all`
-starts one nvcc per source, all at once, and waits for them together.
+.gitignore) and reused by later calls. The library's file name carries
+a hash of the source text and the compiler flags, so an edited source is
+built anew and never answered with a stale library. `build_all` starts
+one nvcc per source, all at once, and waits for them together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -19,7 +22,8 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -34,14 +38,19 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def lib_path(name: str, source_text: str) -> str:
+    """Where the library of csrc/<name>.cu with this text is built."""
+    key = hashlib.sha256("\0".join([source_text, *NVCC_FLAGS]).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{key}.so")
+
+
 def _lib_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
+    with open(os.path.join(CSRC, f"{name}.cu")) as f:
+        return lib_path(name, f.read())
 
 
 def _nvcc_cmd(name: str, out: str):
-    return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out,
-            os.path.join(CSRC, f"{name}.cu")]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, f"{name}.cu")]
 
 
 def build_all(names: Iterable[str]) -> Dict[str, str]:
@@ -50,18 +59,19 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
-        if name in _libs or os.path.exists(_lib_path(name)):
+        path = _lib_path(name)
+        if name in _libs or os.path.exists(path):
             continue
-        tmp = _lib_path(name) + f".{os.getpid()}.tmp"
-        procs[name] = (tmp, subprocess.Popen(
+        tmp = path + f".{os.getpid()}.tmp"
+        procs[name] = (tmp, path, subprocess.Popen(
             _nvcc_cmd(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     reports = {}
-    for name, (tmp, proc) in procs.items():
+    for name, (tmp, path, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
-        os.replace(tmp, _lib_path(name))
+        os.replace(tmp, path)
         reports[name] = out
     return reports
 

@@ -1,16 +1,17 @@
 """Image-space ops: plane membership images and histogram equalization
 (counterpart of slam3d_gx_tpu/ops/imageproc.py).
 
-`equalize_hist` runs on kernels K1 (`histogram256`) and K2
-(`apply_lut256`) for images on the card; the 256-element CDF and LUT
-between them are plain torch on the same device.
+`equalize_hist` is one launch of the kernel `equalize_hist256` for an
+image on the card (histogram, CDF, LUT and lookup fused); on the CPU it
+is that kernel's plain version, built from `equalize_lut`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels import apply_lut256, histogram256
+from ..kernels import equalize_hist256
+from ..kernels.equalize import equalize_lut  # noqa: F401
 
 
 def plane_membership_images(xyz_img, valid_img, coeffs, plane_valid, gray,
@@ -38,26 +39,6 @@ def plane_membership_images(xyz_img, valid_img, coeffs, plane_valid, gray,
     return images, masks
 
 
-def equalize_lut(hist: torch.Tensor, total: int) -> torch.Tensor:
-    """cv::equalizeHist's LUT from a 256-bin histogram -> (256,) float32.
-
-    The first non-empty bin maps to 0 and the rest follow the cumulative
-    histogram scaled by 255/(total - hist[first]). A constant image gets
-    the identity LUT, so applying it returns the image unchanged.
-    """
-    hist = hist.to(torch.int32)
-    i0 = torch.argmax((hist > 0).to(torch.int32))
-    h0 = hist[i0]
-    scale = 255.0 / torch.clamp(total - h0, min=1)
-    csum = torch.cumsum(hist, dim=0)
-    rel = (csum - csum[i0]).to(torch.float32)
-    lut = torch.clamp(torch.round(rel * scale), 0, 255)
-    idx = torch.arange(256, device=hist.device)
-    lut = torch.where(idx <= i0, 0.0, lut)
-    return torch.where(h0 == total, idx.to(torch.float32), lut)
-
-
 def equalize_hist(image: torch.Tensor) -> torch.Tensor:
     """cv::equalizeHist clone on an integer-valued (H,W) image -> uint8."""
-    hist = histogram256(image)
-    return apply_lut256(image, equalize_lut(hist, image.numel()))
+    return equalize_hist256(image)

@@ -1,4 +1,5 @@
-"""K1, K2 (exactly) and K3 (to a last bit) on the card against their plain versions.
+"""`equalize_hist256`, K1, K2 (exactly) and K3 (to a last bit) on the card
+against their plain versions.
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip without a
 card. The file imports no JAX, so it runs on a machine without it:
@@ -38,6 +39,82 @@ def test_cuda_kernels_match_plain_versions(cuda_device, shape):
                                teq.apply_lut256_plain(x.cpu(), lut), rtol=0, atol=0)
     torch.testing.assert_close(timg.equalize_hist(x).cpu(),
                                timg.equalize_hist(x.cpu()), rtol=0, atol=0)
+
+
+def equalize_case(name):
+    rng = np.random.default_rng(13)
+    H, W = 480, 640
+    one = np.zeros((H, W), np.uint8)
+    one[H // 3, W // 5] = 9
+    if name == "random":
+        return rng.integers(0, 256, (H, W))
+    if name == "constant":
+        return np.full((H, W), 77)
+    if name == "empty_bins":
+        return rng.choice([0, 3, 128, 255], (H, W))
+    if name == "skewed":
+        return np.clip(rng.normal(60, 9, (H, W)), 0, 255)
+    if name == "ragged":
+        return rng.integers(0, 256, (37, 53))
+    if name == "one_pixel":
+        return np.array([[200]])
+    if name == "one_nonzero_pixel":
+        return one
+    if name == "total_minus_first_is_one":
+        return np.where(one > 0, 200, 31)
+    if name == "half_ties":  # scale 0.5: every odd cumulative count is a tie
+        ties = np.concatenate([[0, 0, 1], np.repeat(np.arange(2, 256), 2), [255]])
+        return rng.permutation(ties).reshape(16, 32)
+    assert name == "loop_form"  # more pixels than the cluster's registers hold
+    return rng.integers(0, 256, (1080, 1920))
+
+
+EQUALIZE_CASES = ["random", "constant", "empty_bins", "skewed", "ragged", "one_pixel",
+                  "one_nonzero_pixel", "total_minus_first_is_one", "half_ties", "loop_form"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uint8", "float32", "view", "misaligned"])
+@pytest.mark.parametrize("name", EQUALIZE_CASES)
+def test_equalize_hist256_kernel_matches_plain_version(cuda_device, name, kind):
+    """Tolerance 0 (integers; the LUT's two float32 operations are single
+    IEEE operations on both sides). `equalize_hist` on the card is one
+    launch of this kernel and of no other."""
+    img = torch.from_numpy(equalize_case(name).astype(np.uint8))
+    if kind == "float32":
+        img = img.float()
+    elif kind == "view":  # non-contiguous
+        img = torch.stack([img, img], dim=-1)[..., 0]
+    elif kind == "misaligned":  # contiguous, off a 16-byte boundary
+        img = torch.cat([img.reshape(-1)[:1], img.reshape(-1)])[1:]
+    x = img.to(cuda_device)
+    if kind == "view":
+        x = torch.stack([x, x], dim=-1)[..., 0]
+        assert not x.is_contiguous() or x.numel() == 1
+    elif kind == "misaligned":
+        x = torch.cat([x[:1], x])[1:]
+        assert x.data_ptr() % 16 == 1
+    before = kernels.launch_counts()
+    got = timg.equalize_hist(x)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "equalize_hist256": 1, "histogram256": 0, "apply_lut256": 0, "min_eig_response": 0}
+    assert got.dtype == torch.uint8 and got.shape == img.shape
+    torch.testing.assert_close(got.cpu(), teq.equalize_hist256_plain(img), rtol=0, atol=0)
+    torch.testing.assert_close(got, teq.equalize_hist256_plain(x), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_equalize_hist256_back_to_back_launches_are_independent(cuda_device):
+    """1,000 launches on alternating images with no synchronise between
+    them: the cluster's barriers and tables leave nothing behind."""
+    imgs = [torch.from_numpy(equalize_case(k).astype(np.uint8)) for k in ("random", "skewed")]
+    want = [teq.equalize_hist256_plain(i).to(cuda_device) for i in imgs]
+    xs = [i.to(cuda_device) for i in imgs]
+    outs = [kernels.equalize_hist256(xs[i % 2]) for i in range(1000)]
+    torch.cuda.synchronize()
+    assert [i for i, o in enumerate(outs) if not torch.equal(o, want[i % 2])] == []
 
 
 @pytest.mark.cuda

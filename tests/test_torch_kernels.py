@@ -1,4 +1,4 @@
-"""K1 `histogram256` and K2 `apply_lut256` and the equalization built on them.
+"""`equalize_hist256`, K1 `histogram256`, K2 `apply_lut256` and `equalize_hist`.
 
 On the CPU the port's wrappers run their plain PyTorch versions; these
 are held exactly (integer counts, integer LUT values) against the JAX
@@ -77,6 +77,61 @@ def test_apply_lut256_plain_matches_pallas_and_numpy(name):
     np.testing.assert_array_equal(port.numpy().reshape(-1), ref_pallas.astype(np.uint8))
 
 
+def equalize_images():
+    """`images()` and the corners of the LUT arithmetic."""
+    one = np.zeros((24, 40), np.uint8)
+    one[5, 7] = 9
+    # total - first count = 510: scale is 0.5 and every odd cumulative
+    # count lands on a .5 tie (0.5 -> 0, 1.5 -> 2, 2.5 -> 2, ...)
+    ties = np.concatenate([[0, 0, 1], np.repeat(np.arange(2, 256), 2), [255]])
+    rng = np.random.default_rng(12)
+    return dict(images(), one_nonzero_pixel=one,
+                total_minus_first_is_one=np.where(one > 0, 200, 31).astype(np.uint8),
+                half_ties=rng.permutation(ties).reshape(16, 32).astype(np.uint8))
+
+
+def cv_equalize_hist(img):
+    """cv::equalizeHist, transcribed: float scale, float product, cvRound
+    (half to even), saturate to uint8; a constant image is returned."""
+    hist = np.bincount(img.reshape(-1), minlength=256)
+    i = int(np.nonzero(hist)[0][0])
+    if hist[i] == img.size:
+        return img.copy()
+    scale = np.float32(255.0) / np.float32(img.size - hist[i])
+    lut = np.zeros(256, np.uint8)
+    total = 0
+    for j in range(i + 1, 256):
+        total += int(hist[j])
+        lut[j] = np.clip(np.rint(np.float32(total) * scale), 0, 255)
+    return lut[img]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("name", sorted(equalize_images()))
+def test_equalize_hist256_matches_jax_pallas_and_opencv(name, dtype, monkeypatch):
+    """Tolerance 0: counts and LUT entries are integers, and the LUT's two
+    float32 operations (a division, a product) are single IEEE
+    operations in every version, rounded half to even."""
+    img = equalize_images()[name]
+    want = cv_equalize_hist(img)
+    x = torch.from_numpy(img.astype(dtype))
+    for port in (kernels.equalize_hist256(x), timg.equalize_hist(x),
+                 kernels.equalize.equalize_hist256_plain(x)):
+        assert port.dtype == torch.uint8 and port.shape == img.shape
+        np.testing.assert_array_equal(port.numpy(), want)
+    # the JAX package with its two Pallas kernels in interpret mode
+    monkeypatch.setattr(jpk, "histogram256", functools.partial(jpk.histogram256, use_pallas=True))
+    monkeypatch.setattr(jpk, "apply_lut256", functools.partial(jpk.apply_lut256, use_pallas=True))
+    ref = interpret(jimg.equalize_hist, jnp.asarray(img.astype(dtype)))
+    np.testing.assert_array_equal(ref, want)
+
+
+def test_equalize_half_ties_round_to_even():
+    img = equalize_images()["half_ties"]
+    lut = timg.equalize_lut(kernels.histogram256(torch.from_numpy(img)), img.size)
+    np.testing.assert_array_equal(lut[:6].numpy(), [0, 0, 2, 2, 4, 4])
+
+
 @pytest.mark.parametrize("name", sorted(images()))
 def test_equalize_hist_matches_jax(name):
     img = images()[name]
@@ -120,8 +175,9 @@ def test_wrappers_count_only_kernel_launches():
     kernels.reset_counts()
     img = torch.from_numpy(images()["random"])
     timg.equalize_hist(img)
-    assert kernels.launch_counts() == {"histogram256": 0, "apply_lut256": 0,
-                                       "min_eig_response": 0}
+    kernels.equalize_hist256(img)
+    assert kernels.launch_counts() == {"equalize_hist256": 0, "histogram256": 0,
+                                       "apply_lut256": 0, "min_eig_response": 0}
 
 
 def test_wrappers_refuse_a_device_without_a_kernel():
@@ -130,6 +186,8 @@ def test_wrappers_refuse_a_device_without_a_kernel():
         kernels.histogram256(meta)
     with pytest.raises(RuntimeError, match="unsupported device"):
         kernels.apply_lut256(meta, torch.zeros(256, device="meta"))
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        kernels.equalize_hist256(meta)
 
 
 def test_wrappers_have_no_fallback_from_the_kernel():
@@ -138,3 +196,16 @@ def test_wrappers_have_no_fallback_from_the_kernel():
     for module in ("equalize.py", "min_eig.py"):
         tree = ast.parse((REPO / "slam3d_gx_torch" / "kernels" / module).read_text())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], module
+
+
+def test_built_library_is_named_after_its_source_and_flags(monkeypatch):
+    """An edited source must never be answered with a stale library."""
+    from slam3d_gx_torch.kernels import build
+
+    a = build.lib_path("equalize", "__global__ void k() {}")
+    assert a == build.lib_path("equalize", "__global__ void k() {}")
+    assert a != build.lib_path("equalize", "__global__ void k() { }")
+    assert a != build.lib_path("min_eig", "__global__ void k() {}")
+    assert pathlib.Path(a).parent == pathlib.Path(build.BUILD_DIR)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-lineinfo"])
+    assert a != build.lib_path("equalize", "__global__ void k() {}")
