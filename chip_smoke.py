@@ -15,15 +15,23 @@ Phases, each of which must pass or the script exits non-zero:
    whose LUT products land on .5 ties, a skewed frame, a non-contiguous
    and a 16-byte-misaligned view, float32 input, 1080x1920 for the loop
    form, and 1,000 back-to-back calls on alternating images without a
-   synchronise between them); K3 within 1e-6 of the image's largest box
-   sum (480x640 uint8 and f32, constant, 37x53, 1x7, 7x1, a
-   non-contiguous view), also against the plain version run on the CPU.
-   Then time kernel, plain version and, where there is one, one PyTorch
-   library call on the card (torch.profiler's device times, median of
-   200 calls after warm-up), and one wrapper call on the stream with
-   CUDA events; beside `equalize_hist256`, the two-kernel composition it
-   replaced (K1, `equalize_lut`, K2) with its device operations, and an
-   empty kernel launched in the same shape;
+   synchronise between them); K3's branch-free division and root
+   against the IEEE intrinsics on all 2^32 floats, then K3 bit for bit
+   against its first design (the tiled kernel, entry slam_min_eig_tile)
+   and within 1e-6 of the image's largest box sum against its plain
+   version on the card and on the CPU (480x640 uint8 and f32, constant, 37x53, 1x7, 7x1, 2x640,
+   480x2, 2x2, one row and one column either side of the tile's edges,
+   1080x1920 and 2160x3840 for the grid-stride loop, a non-contiguous
+   view, a row-cropped view read in place at its pitch, a 1-byte-
+   misaligned base), every built variant bit for bit, and 1,000
+   back-to-back calls on alternating images. Then time kernel, plain
+   version and, where there is one, one PyTorch library call on the card
+   (torch.profiler's device times, median of 200 calls after warm-up),
+   one wrapper call on the stream with CUDA events and on the host;
+   beside `equalize_hist256`, the two-kernel composition it replaced
+   (K1, `equalize_lut`, K2) with its device operations; beside K3, the
+   tiled kernel and its first wrapper's host path; beside each, an empty
+   kernel launched in the same shape;
 4. `equalize_hist` on the card against the plain CPU path, exactly;
 5. the plane path: `run_SLAM 29` (slam3d_gx_torch.cli.run_slam.run) over a
    synthetic 30-frame 640x480 orbit with the repo's parameters.yaml
@@ -49,8 +57,10 @@ prints no result.
 
     python3 chip_smoke.py --kernels   # phases 1-4 only
     python3 chip_smoke.py --sweep     # phases 1-2, then equalize_hist256 in
-                                      # clusters of 8 and 16 blocks against K1 + K2
-                                      # from 480x640 to 2160x3840
+                                      # clusters of 8 and 16 blocks against K1 + K2,
+                                      # and K3 in every built (columns, rows) a
+                                      # thread against the tiled kernel, uint8 and
+                                      # f32, from 480x640 to 2160x3840
 """
 
 from __future__ import annotations
@@ -310,71 +320,194 @@ def sweep_equalize(dev, kernels, equalize):
 K3_REL_TOL = 1e-6  # of the image's largest box sum
 
 
+def min_eig_cases(rng, dev):
+    """(image on the CPU, the same image on the card as the wrapper gets
+    it) for K3's checks: the main path's shapes and types, awkward
+    sizes, one row and one column either side of the tile's edges, the
+    grid-stride sizes, and views read in place or copied."""
+    from slam3d_gx_torch.kernels import min_eig
+
+    def u8(shape):
+        return torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+
+    def f32(shape):
+        return torch.from_numpy((rng.normal(size=shape) * 50).astype(np.float32))
+
+    g = min_eig.geometry(1, 1)
+    th, tw = g.tile_h, g.tile_w
+    cases = {"480x640 uint8": u8((H, W)), "480x640 f32": f32((H, W)),
+             "constant": torch.full((H, W), 77, dtype=torch.uint8),
+             "37x53": u8((37, 53)), "1x7": u8((1, 7)), "7x1": f32((7, 1)),
+             "2x640": u8((2, 640)), "480x2": u8((480, 2)), "2x2": f32((2, 2))}
+    for dh, dw in ((-1, -1), (0, 0), (1, 1), (1, -1), (-1, 1)):
+        cases[f"{2 * th + dh}x{2 * tw + dw} (tile edge {dh:+d}, {dw:+d})"] = u8(
+            (2 * th + dh, 2 * tw + dw))
+    cases["1080x1920 (grid stride)"] = u8((1080, 1920))
+    cases["2160x3840 (grid stride)"] = u8((2160, 3840))
+    cases["2160x3840 f32 (grid stride)"] = f32((2160, 3840))
+    out = {k: (v, v.to(dev)) for k, v in cases.items()}
+    wide = u8((H, 2 * W))
+    out["non-contiguous view (copied)"] = (wide[:, ::2], wide.to(dev)[:, ::2])
+    big = u8((H + 7, W + 13))
+    out["row-cropped view (read in place at its pitch)"] = (
+        big[3:3 + H, 5:5 + W], big.to(dev)[3:3 + H, 5:5 + W])
+    flat = big.to(dev).reshape(-1)[1:1 + H * W]
+    assert flat.data_ptr() % 16 == 1
+    out["1-byte-misaligned base"] = (big.reshape(-1)[1:1 + H * W].view(H, W), flat.view(H, W))
+    return out
+
+
 def check_min_eig(dev, kernels, min_eig):
-    """K3 against its plain version on the card, and against the plain
-    version run on the CPU, both within K3_REL_TOL of the largest box sum:
-    the response is a difference of two such sums, and the plain version
-    differs from the kernel's IEEE operations in last bits (on the card
-    PyTorch's scalar division is a product with the reciprocal, on the
-    CPU its sqrt is not always correctly rounded). Returns the largest
-    error on the card."""
-    rng = np.random.default_rng(4)
-    wide = rng.integers(0, 256, (H, 2 * W)).astype(np.uint8)
-    cases = {
-        "480x640 uint8": torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.uint8)),
-        "480x640 f32": torch.from_numpy((rng.normal(size=(H, W)) * 50).astype(np.float32)),
-        "constant": torch.full((H, W), 77, dtype=torch.uint8),
-        "37x53": torch.from_numpy(rng.integers(0, 256, (37, 53)).astype(np.uint8)),
-        "1x7": torch.from_numpy(rng.integers(0, 256, (1, 7)).astype(np.uint8)),
-        "7x1": torch.from_numpy((rng.normal(size=(7, 1)) * 50).astype(np.float32)),
-        "non-contiguous view": torch.from_numpy(wide)[:, ::2],
-    }
+    """K3 bit for bit against its first design (the tiled kernel, entry
+    slam_min_eig_tile), and against its plain version on the card and on
+    the CPU within K3_REL_TOL of the largest box sum: the response is a
+    difference of two such sums, and the plain version differs from the
+    kernel's IEEE operations in last bits (on the card PyTorch's scalar
+    division is a product with the reciprocal, on the CPU its sqrt is
+    not always correctly rounded). Returns the largest error on the card."""
+    sc = min_eig.rounding_selfcheck(dev)
+    for op, r in sc.items():
+        print(f"  every float32 through the kernel's branch-free {op} against the IEEE "
+              f"intrinsic: {r['differ']} differ, {r['differ_accepted']} of them taken by the "
+              f"fast form, {r['refused']} handed to the intrinsic (|x| bits of those that differ "
+              f"from {r['min_abs_bits']:#x} to {r['max_abs_bits']:#x})", flush=True)
+        if r["differ_accepted"]:
+            raise AssertionError(f"min_eig_response: the fast {op} differs from the intrinsic")
     worst = 0.0
-    for name, img in cases.items():
-        x = img.to(dev) if img.is_contiguous() else torch.from_numpy(wide).to(dev)[:, ::2]
+    for name, (img, x) in min_eig_cases(np.random.default_rng(4), dev).items():
         got = kernels.min_eig_response(x)
+        old = min_eig._min_eig_tile(x)
         torch.cuda.synchronize()
+        if not (got.shape == img.shape and torch.isfinite(got).all()):
+            raise AssertionError(f"min_eig_response: bad output on {name}")
+        if "in place" in name and min_eig.pitched(x)[0].data_ptr() != x.data_ptr():
+            raise AssertionError(f"min_eig_response copied the {name}")
+        if not torch.equal(got, old):
+            raise AssertionError(f"min_eig_response differs from the tiled kernel on {name}: "
+                                 f"{float((got - old).abs().max())}")
         sxx, syy, _ = min_eig.structure_tensor(x.to(torch.float32))
         tol = K3_REL_TOL * float((sxx + syy).max())
         err = float((got - min_eig.min_eig_response_plain(x)).abs().max())
         err_cpu = float((got.cpu() - min_eig.min_eig_response_plain(img)).abs().max())
-        print(f"  {name}: min_eig_response max abs err {err:.6g} against the plain version "
-              f"on the card (tolerance {tol:.6g}, largest response "
-              f"{float(got.max()):.6g}), {err_cpu:.6g} against it on the CPU", flush=True)
-        if not (got.shape == img.shape and torch.isfinite(got).all()):
-            raise AssertionError(f"min_eig_response: bad output on {name}")
+        print(f"  {name}: min_eig_response bit-identical to the tiled kernel; max abs err "
+              f"{err:.6g} against the plain version on the card (tolerance {tol:.6g}, "
+              f"largest response {float(got.max()):.6g}), {err_cpu:.6g} against it on the "
+              f"CPU", flush=True)
         if err > tol or err_cpu > tol:
             raise AssertionError(f"min_eig_response differs from its plain version on {name}: "
                                  f"{err} (tolerance {tol}), {err_cpu} on the CPU")
         worst = max(worst, err)
+    rng = np.random.default_rng(14)
+    for cols, rows in min_eig.VARIANTS:
+        for shape in ((H, W), (37, 53), (70, 523)):
+            for x in (torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)).to(dev),
+                      torch.from_numpy((rng.normal(size=shape) * 50).astype(np.float32)).to(dev)):
+                if not torch.equal(min_eig._launch_min_eig(x, cols, rows),
+                                   min_eig._min_eig_tile(x)):
+                    raise AssertionError(f"K3 variant {(cols, rows)} differs from the tiled "
+                                         f"kernel at {shape} {x.dtype}")
+    print(f"  variants {min_eig.VARIANTS} (cols, rows): bit-identical to the tiled kernel at "
+          f"{H}x{W}, 37x53 and 70x523, uint8 and f32", flush=True)
+
+    # a register or a tile that one launch leaves unclean shows in the next
+    pair = [torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.uint8)).to(dev)
+            for _ in range(2)]
+    want = [min_eig._min_eig_tile(p) for p in pair]
+    outs = [kernels.min_eig_response(pair[i % 2]) for i in range(1000)]
+    torch.cuda.synchronize()
+    bad = [i for i, o in enumerate(outs) if not torch.equal(o, want[i % 2])]
+    print(f"  1,000 back-to-back calls on alternating images: {len(bad)} wrong", flush=True)
+    if bad:
+        raise AssertionError(f"min_eig_response: back-to-back calls {bad[:10]} are wrong")
     return worst
+
+
+def min_eig_bound(x):
+    """K3's least time for image x: its bytes read once and the f32
+    response written once, or ~55 flop a pixel (2 Sobels of 6 taps ~16,
+    3 products, 3 box sums of 9 ~27, the closed form ~9)."""
+    n = x.numel()
+    return bound(n * x.element_size() + 4 * n, 55 * n)
+
+
+def first_wrapper(min_eig):
+    """The first wrapper's host path around the tiled kernel, as it was:
+    enter the device, take the build lock, copy to contiguous, wrap each
+    pointer. For the host time of one call, before against after."""
+    import ctypes
+
+    from slam3d_gx_torch.kernels import build
+
+    fn = min_eig._entry("slam_min_eig_tile")
+
+    def call(img):
+        x = img.contiguous()
+        out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            build.load(min_eig.SOURCE)
+            rc = fn(ctypes.c_void_p(x.data_ptr()), int(x.dtype == torch.uint8), x.shape[0],
+                    x.shape[1], ctypes.c_void_p(out.data_ptr()),
+                    ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        build.check(rc, "min_eig_tile")
+        return out
+    return call
 
 
 def time_min_eig(dev, kernels, min_eig):
     """K3 at the main path's shape and type: the image-only extractor
     hands it the 480x640 uint8 gray frame. The f32 form, which the plane
-    extractor's equalized frame takes, is printed beside it. No single
-    PyTorch call computes this function."""
+    extractor's equalized frame takes, is printed beside it, and beside
+    each the tiled kernel's time in this run. No single PyTorch call
+    computes this function."""
     rng = np.random.default_rng(5)
     x8 = torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.uint8)).to(dev)
     x32 = x8.to(torch.float32)
-    n = x8.numel()
-    # per pixel: 2 Sobels of 6 taps (~16), 3 products, 3 box sums of 9 (~27),
-    # the closed form (~9)
-    ops = 55 * n
+    old_call = first_wrapper(min_eig)
     row = None
     for label, x in (("uint8", x8), ("f32", x32)):
-        b, by = bound(x.numel() * x.element_size() + 4 * n, ops)
-        ms, how, _ = device_ms(lambda: kernels.min_eig_response(x))
+        b, by = min_eig_bound(x)
+        ms, how, ops = device_ms(lambda: kernels.min_eig_response(x))
+        old_ms = device_ms(lambda: min_eig._min_eig_tile(x))[0]
         r = dict(ms=ms, plain_ms=device_ms(lambda: min_eig.min_eig_response_plain(x))[0],
-                 library_ms=None, bound_ms=b, bound_by=by,
+                 library_ms=None, bound_ms=b, bound_by=by, old_ms=old_ms,
                  stream_ms=event_ms(lambda: kernels.min_eig_response(x)))
-        print(f"  min_eig_response at {H}x{W} {label} ({how}): kernel {r['ms'] * 1e3:.3f} us, "
-              f"plain {r['plain_ms'] * 1e3:.3f} us, library none, bound "
-              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); one wrapper call on the "
-              f"stream {r['stream_ms'] * 1e3:.3f} us", flush=True)
+        print(f"  min_eig_response at {H}x{W} {label} ({how}): kernel {r['ms'] * 1e3:.3f} us in "
+              f"{ops:g} device operation(s), the tiled kernel {old_ms * 1e3:.3f} us "
+              f"({r['ms'] / old_ms:.3f}x), plain {r['plain_ms'] * 1e3:.3f} us, library none, "
+              f"bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}, "
+              f"{100 * b / ms:.1f}% of it); one wrapper call on the stream "
+              f"{r['stream_ms'] * 1e3:.3f} us, on the host "
+              f"{host_us(lambda: kernels.min_eig_response(x)):.3f} us (the first wrapper "
+              f"{host_us(lambda: old_call(x)):.3f} us)", flush=True)
         row = row or r
+    g = min_eig.geometry(H, W, resident=min_eig._resident(dev, 1, min_eig.COLS, min_eig.ROWS))
+    print(f"  an empty kernel in the same launch shape ({g.grid} blocks of 128 threads): "
+          f"{device_ms(lambda: min_eig.launch_empty(dev, g.grid))[0] * 1e3:.3f} us", flush=True)
     return row
+
+
+def sweep_min_eig(dev, min_eig):
+    """Device time of K3 in every built variant (columns and rows a
+    thread owns) against the tiled kernel, uint8 and f32, from the main
+    path's frame to 2160x3840, with each size's bound."""
+    rng = np.random.default_rng(12)
+    for h, w in ((H, W), (720, 1280), (1080, 1920), (2160, 3840)):
+        x8 = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.uint8)).to(dev)
+        for label, x in (("uint8", x8), ("f32", x8.to(torch.float32))):
+            old = min_eig._min_eig_tile(x)
+            old_us = device_ms(lambda: min_eig._min_eig_tile(x))[0] * 1e3
+            us = {}
+            for cols, rows in min_eig.VARIANTS:
+                assert torch.equal(min_eig._launch_min_eig(x, cols, rows), old), (cols, rows)
+                us[cols, rows] = device_ms(
+                    lambda: min_eig._launch_min_eig(x, cols, rows))[0] * 1e3
+            main = (min_eig.COLS, min_eig.ROWS)
+            g = min_eig.geometry(h, w, *main, min_eig._resident(
+                x.device, int(x.dtype == torch.uint8), *main))
+            variants = ", ".join(f"{k}: {v:.3f} us" for k, v in us.items())
+            print(f"  {h}x{w} {label}: tiled kernel {old_us:.3f} us; (cols, rows) {variants}; "
+                  f"the main path's {main}: {g.n_tiles} tiles in {g.grid} blocks; bound "
+                  f"{min_eig_bound(x)[0] * 1e3:.4f} us", flush=True)
 
 
 def time_equalize_kernels(dev, kernels, equalize):
@@ -581,6 +714,8 @@ def main(argv=()) -> int:
     if "--sweep" in argv:
         phase("equalize_hist256: cluster sizes and image sizes")
         sweep_equalize(dev, kernels, equalize)
+        phase("min_eig_response: variants and image sizes against the tiled kernel")
+        sweep_min_eig(dev, min_eig)
         return 0
 
     phase("kernels against their plain versions")

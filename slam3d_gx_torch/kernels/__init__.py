@@ -1,13 +1,16 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain version.
 
-| kernel | replaces (slam3d_gx_tpu/ops/pallas_kernels.py) | source |
+| kernel | replaces (slam3d_gx_tpu/ops/pallas_kernels.py) | source, design |
 |---|---|---|
-| `equalize_hist256` (the main path's) | `_hist_kernel` and `_lut_kernel` in one launch | csrc/equalize.cu |
-| K1 `histogram256` | `_hist_kernel` / `_histogram256_pallas` | csrc/equalize.cu |
-| K2 `apply_lut256` | `_lut_kernel` / `_apply_lut256_pallas` | csrc/equalize.cu |
-| K3 `min_eig_response` | `_min_eig_kernel` / `min_eig_response_fused` | csrc/min_eig.cu |
+| `equalize_hist256` (the main path's) | `_hist_kernel` and `_lut_kernel` | csrc/equalize.cu, one cluster |
+| K1 `histogram256` | `_hist_kernel` / `_histogram256_pallas` | csrc/equalize.cu, off the path |
+| K2 `apply_lut256` | `_lut_kernel` / `_apply_lut256_pallas` | csrc/equalize.cu, off the path |
+| K3 `min_eig_response` | `_min_eig_kernel` / `min_eig_response_fused` | csrc/min_eig.cu, one wave |
 
-These are all the TPU kernels of the JAX package.
+These are all the TPU kernels of the JAX package, and each has had its
+Hopper redesign: K1 and K2 as `equalize_hist256`, K3 as one resident
+wave of register-blocked warps (its first design stays in the same
+source, off every path, as the yardstick).
 """
 
 from . import build, equalize, min_eig  # noqa: F401

@@ -1,4 +1,5 @@
-"""Build the CUDA sources under `csrc/` with nvcc and load them with ctypes.
+"""Build the CUDA sources under `csrc/` with nvcc, load them with ctypes
+and launch their C entries on PyTorch's current stream.
 
 Each source becomes one shared library with a plain C interface
 (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict, Iterable
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -85,3 +88,38 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
         return lib
+
+
+def bind(name: str, argtypes: Dict[str, list]) -> Dict[str, object]:
+    """The C functions of csrc/<name>.cu named in `argtypes`, each typed
+    (arguments as given, an int result), built and loaded first if needed.
+    A wrapper calls this once and keeps the result."""
+    lib = load(name)
+    fns = {}
+    for entry, types in argtypes.items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = types, ctypes.c_int
+        fns[entry] = fn
+    return fns
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def launch(fn, name: str, device: torch.device, *args) -> None:
+    """Call the C entry `fn` with `args` and `device`'s current stream;
+    raise if the launch is refused. Enters `device` only when it is not
+    the current one."""
+    # PyTorch's own bindings for the current device and the handle of a
+    # device's current stream, which build no torch.cuda.Stream object
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    check(rc, name)

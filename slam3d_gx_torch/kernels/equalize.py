@@ -49,37 +49,15 @@ def reset_counts() -> None:
 
 def _entry(name: str):
     """The C function `name` of the built library, resolved and typed once."""
-    fn = _entries.get(name)
-    if fn is None:
-        lib = build.load(SOURCE)
-        for entry, argtypes in _ARGTYPES.items():
-            f = getattr(lib, entry)
-            f.argtypes, f.restype = argtypes, ctypes.c_int
-            _entries[entry] = f
-        fn = _entries[name]
-    return fn
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    if not _entries:
+        _entries.update(build.bind(SOURCE, _ARGTYPES))
+    return _entries[name]
 
 
 def _launch(entry: str, device: torch.device, *args) -> None:
     """Call a C entry on `device`'s current stream; raise if the launch
     is refused."""
-    fn = _entry(entry)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index == torch.cuda.current_device():
-        rc = fn(*args, stream)
-    else:
-        with torch.cuda.device(device):
-            rc = fn(*args, stream)
-    _check(rc, entry)
+    build.launch(_entry(entry), entry, device, *args)
 
 
 def _as_u8(values: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """`equalize_hist256`, K1, K2 (exactly) and K3 (to a last bit) on the card
-against their plain versions.
+against their plain versions, and K3 bit for bit against its first design.
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip without a
 card. The file imports no JAX, so it runs on a machine without it:
@@ -151,3 +151,87 @@ def test_min_eig_kernel_matches_plain_version(cuda_device, shape, kind):
     atol = 1e-6 * float((sxx + syy).max())
     torch.testing.assert_close(got, tk3.min_eig_response_plain(x), rtol=0, atol=atol)
     torch.testing.assert_close(got.cpu(), tk3.min_eig_response_plain(img), rtol=0, atol=atol)
+
+
+def k3_case(shape, kind, seed=10):
+    """(image on the CPU, the same image on the card as the wrapper gets it)."""
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    if kind == "float":
+        img = torch.from_numpy((rng.normal(size=shape) * 50).astype(np.float32))
+        return img, img.to(CUDA)
+    big = torch.from_numpy(rng.integers(0, 256, (H + 3, W + 9)).astype(np.uint8))
+    if kind == "uint8":
+        img = big[:H, :W].contiguous()
+        return img, img.to(CUDA)
+    dev = big.to(CUDA)
+    if kind == "pitched":  # a row-cropped view: read in place at the parent's pitch
+        return big[2:2 + H, 5:5 + W], dev[2:2 + H, 5:5 + W]
+    assert kind == "misaligned"  # contiguous rows one byte off an aligned base
+    flat = dev.reshape(-1)[1:1 + H * W]
+    assert flat.data_ptr() % 16 == 1
+    return big.reshape(-1)[1:1 + H * W].view(H, W), flat.view(H, W)
+
+
+CUDA = "cuda"
+K3_SHAPES = [(15, 119), (16, 120), (17, 121), (33, 239), (47, 241), (2, 640), (480, 2),
+             (2, 2), (1080, 1920), (2160, 3840)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uint8", "float", "pitched", "misaligned"])
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_min_eig_kernel_is_bit_identical_to_its_first_design(cuda_device, shape, kind):
+    """The one-wave kernel does the first design's rounded operations in
+    the same order: equal to the last bit on every shape (tile edges
+    either side, 2-pixel images, the grid-stride sizes) and view. The
+    plain version is held as in test_min_eig_kernel_matches_plain_version.
+    A pitched view is read in place, not copied."""
+    img, x = k3_case(shape, kind)
+    before = kernels.launch_counts()["min_eig_response"]
+    got = kernels.min_eig_response(x)
+    old = tk3._min_eig_tile(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["min_eig_response"] == before + 1
+    assert got.shape == tuple(shape) and got.dtype == torch.float32
+    assert torch.equal(got, old)
+    if kind == "pitched":
+        assert tk3.pitched(x)[0].data_ptr() == x.data_ptr()
+    sxx, syy, _ = tk3.structure_tensor(img.to(torch.float32))
+    atol = 1e-6 * float((sxx + syy).max())
+    torch.testing.assert_close(got, tk3.min_eig_response_plain(x), rtol=0, atol=atol)
+    if shape[0] * shape[1] <= 480 * 640:  # the CPU's plain version is slow above
+        torch.testing.assert_close(got.cpu(), tk3.min_eig_response_plain(img), rtol=0,
+                                   atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", tk3.VARIANTS)
+def test_min_eig_every_built_variant_is_bit_identical(cuda_device, variant):
+    for kind in ("uint8", "float", "misaligned"):
+        for shape in ((480, 640), (37, 53), (70, 523)):
+            _, x = k3_case(shape, kind)
+            got = tk3._launch_min_eig(x, *variant)
+            assert torch.equal(got, tk3._min_eig_tile(x)), (kind, shape)
+
+
+@pytest.mark.cuda
+def test_min_eig_back_to_back_launches_are_independent(cuda_device):
+    """1,000 launches on alternating images with no synchronise between."""
+    xs = [k3_case((480, 640), "uint8", seed)[1] for seed in (1, 2)]
+    want = [tk3._min_eig_tile(x) for x in xs]
+    outs = [kernels.min_eig_response(xs[i % 2]) for i in range(1000)]
+    torch.cuda.synchronize()
+    assert [i for i, o in enumerate(outs) if not torch.equal(o, want[i % 2])] == []
+
+
+@pytest.mark.cuda
+def test_min_eig_fast_division_and_root_round_as_the_intrinsics(cuda_device):
+    """All 2^32 float32 inputs: the kernel's branch-free x / 9 and sqrt
+    agree with __fdiv_rn and __fsqrt_rn wherever the kernel uses them."""
+    # the division leaves +-inf and NaN to the intrinsic; the root keeps +-0
+    # and the finite floats from 2^-100 up (exponent fields 27 to 254)
+    refused = {"div9": 2 ** 24, "sqrt": 2 ** 32 - (2 + 228 * 2 ** 23)}
+    for op, r in tk3.rounding_selfcheck(cuda_device).items():
+        assert r["differ_accepted"] == 0, (op, r)
+        assert r["refused"] == refused[op], (op, r)

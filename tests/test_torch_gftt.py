@@ -204,3 +204,236 @@ def test_wrapper_counts_only_kernel_launches_and_checks_its_input():
         kernels.min_eig_response(torch.zeros(3, 4, 5))
     with pytest.raises(RuntimeError, match="unsupported device"):
         kernels.min_eig_response(torch.zeros(4, 5, device="meta"))
+
+
+# -- K3's launch geometry and a numpy model of its blocks ----------------------
+#
+# The CUDA kernel runs only on the card. What surrounds it runs here: the
+# launch geometry the wrapper computes (tiles, grid, interior/border
+# split, rows and columns per thread), and a float32 numpy model of what
+# one block does over it (halo loads, clamps, the sliding order of rows,
+# the neighbours' values taken by shuffle), which must equal the plain
+# version bit for bit.
+
+def tile_edge_shapes(cols=tk3.COLS, rows=tk3.ROWS):
+    g = tk3.geometry(1, 1, cols, rows)
+    th, tw = g.tile_h, g.tile_w
+    return [(th - 1, tw - 1), (th, tw), (th + 1, tw + 1), (2 * th + 1, 2 * tw - 1),
+            (3 * th - 1, 3 * tw + 1)]
+
+
+GEOMETRY_SHAPES = [(480, 640), (37, 53), (1, 7), (7, 1), (1, 1), (2, 9), (9, 2),
+                   (2160, 3840)] + tile_edge_shapes()
+
+
+def block_tiles(g):
+    """(block, tile) of every tile the grid-stride loop visits."""
+    b = np.arange(g.grid)
+    t = b[None, :] + g.grid * np.arange(-(-g.n_tiles // g.grid))[:, None]
+    keep = t < g.n_tiles
+    return np.broadcast_to(b, t.shape)[keep], t[keep]
+
+
+def written_pixels(g, H, W):
+    """Flat indices of every (row, column) the launch writes, once per write."""
+    _, t = block_tiles(g)
+    ty, tx = np.divmod(t, g.tiles_x)
+    w, lane, c, j = np.meshgrid(np.arange(tk3.WARPS), np.arange(1, tk3.LANES_OUT + 1),
+                                np.arange(g.cols), np.arange(g.rows), indexing="ij")
+    r = (ty * g.tile_h)[:, None] + (w * g.rows + j).reshape(-1)[None]
+    x = (tx * g.tile_w - g.cols)[:, None] + (lane * g.cols + c).reshape(-1)[None]
+    assert x.min() >= 0
+    keep = (r < H) & (x < W)
+    return (r * W + x)[keep]
+
+
+@pytest.mark.parametrize("variant", tk3.VARIANTS)
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_k3_geometry_covers_every_pixel_once(shape, variant):
+    H, W = shape
+    cols, rows = variant
+    for resident in (1 << 30, 660, 7):  # one wave of every tile, and grid-stride loops
+        g = tk3.geometry(H, W, cols, rows, resident)
+        assert g.grid == min(g.n_tiles, resident) >= 1
+        assert (g.tile_w, g.tile_h) == (tk3.LANES_OUT * cols, tk3.WARPS * rows)
+        assert g.tiles_x * g.tile_w >= W > (g.tiles_x - 1) * g.tile_w
+        assert g.tiles_y * g.tile_h >= H > (g.tiles_y - 1) * g.tile_h
+        counts = np.bincount(written_pixels(g, H, W), minlength=H * W)
+        assert counts.shape == (H * W,) and (counts == 1).all()
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_k3_interior_tiles_read_and_write_inside_the_image(shape):
+    """A tile takes the path without clamps only when every row its warps
+    read (two above and below their rows) and every column its lanes read
+    (lanes 0 and 31 included) lies inside the image, and when every
+    column its writing lanes own is inside it too."""
+    H, W = shape
+    g = tk3.geometry(H, W)
+    interior = [t for t in range(g.n_tiles) if tk3.tile_is_interior(g, H, W, t)]
+    for t in interior:
+        r0, c0 = tk3.tile_origin(g, t)
+        rows_read = np.arange(r0 - 2, r0 + g.tile_h + 2)
+        cols_read = c0 - g.cols + np.arange(32 * g.cols)
+        assert rows_read.min() >= 0 and rows_read.max() <= H - 1
+        assert cols_read.min() >= 0 and cols_read.max() <= W - 1
+        assert c0 + g.tile_w <= W and r0 + g.tile_h <= H
+    edge = [t for t in range(g.n_tiles)
+            if tk3.tile_origin(g, t)[0] == 0 or tk3.tile_origin(g, t)[1] == 0]
+    assert not set(edge) & set(interior)
+    if shape == (480, 640):  # all but the outer ring of tiles take no clamp
+        assert g.tiles_x == 6 and len(interior) == (g.tiles_x - 2) * (g.tiles_y - 2)
+
+
+def model_k3(img, g, sqrt, separable=False):
+    """float32 numpy model of K3's blocks over geometry `g`, in the
+    kernel's order: each warp loads three image rows (clamped in border
+    tiles), takes its lanes' side columns from the neighbouring lanes,
+    and slides down its rows keeping the running vertical sum of two
+    product rows. `sqrt` is the square root applied last. Like the
+    kernel, its sums start at their first term where the plain version
+    starts at +0: only the sign of a zero can differ, and the response
+    does not see it. `separable` takes the gradients as the kernel does
+    on bytes: each row's horizontal difference and smoothing once, then
+    gx = dx0 + 2 dx1 + dx2 and gy = sm2 - sm0 (exact on bytes)."""
+    f = np.float32
+    H, W = img.shape
+    C, R = g.cols, g.rows
+    out = np.full((H, W), np.nan, np.float32)
+
+    def up(a):    # __shfl_up_sync(.., 1): lane l takes lane l-1's, lane 0 its own
+        return np.concatenate([a[:1], a[:-1]])
+
+    def down(a):  # __shfl_down_sync(.., 1): lane l takes lane l+1's, lane 31 its own
+        return np.concatenate([a[1:], a[-1:]])
+
+    def sobel(i0, i1, i2):
+        if separable:
+            (dx0, sm0), (dx1, _), (dx2, sm2) = (
+                (i[:, 2:] - i[:, :-2], f(2) * i[:, 1:-1] + (i[:, :-2] + i[:, 2:]))
+                for i in (i0, i1, i2))
+            gx = f(2) * dx1 + (dx0 + dx2)
+            gy = sm2 - sm0
+            return gx * gx, gy * gy, gx * gy
+        a00, a01, a02 = i0[:, :-2], i0[:, 1:-1], i0[:, 2:]
+        a10, a12 = i1[:, :-2], i1[:, 2:]
+        a20, a21, a22 = i2[:, :-2], i2[:, 1:-1], i2[:, 2:]
+        gx = -a00 + a02 + f(-2) * a10 + f(2) * a12 + -a20 + a22
+        gy = -a00 + f(-2) * a01 + -a02 + a20 + f(2) * a21 + a22
+        return gx * gx, gy * gy, gx * gy
+
+    for _, t in zip(*block_tiles(g)):
+        rb, c0 = tk3.tile_origin(g, t)
+        border = not tk3.tile_is_interior(g, H, W, t)
+        x = (c0 - C + np.arange(32) * C)[:, None] + np.arange(C)[None]  # (lane, column)
+        xr = np.clip(x, 0, W - 1) if border else x
+        assert xr.min() >= 0 and xr.max() < W
+
+        def row(y):
+            y = min(max(y, 0), H - 1) if border else y
+            assert 0 <= y < H
+            v = img[y][xr]
+            return np.concatenate([up(v[:, -1])[:, None], v, down(v[:, 0])[:, None]], 1)
+
+        for w in range(tk3.WARPS):
+            r0 = rb + w * R
+            if r0 >= H:
+                continue
+            i0, i1, i2 = row(r0 - 2), row(r0 - 1), row(r0)
+            above = sobel(i0, i1, i2)
+            i0, i1, i2 = i1, i2, row(r0 + 1)
+            cur = sobel(i0, i1, i2)
+            if border and r0 == 0:
+                above = cur
+            run = [a + b for a, b in zip(above, cur)]
+            for j in range(R):  # rows past the image's last are computed, not stored
+                r = r0 + j
+                i0, i1, i2 = i1, i2, row(r + 2)
+                nxt = cur if border and r + 1 > H - 1 else sobel(i0, i1, i2)
+                vs = [a + b for a, b in zip(run, nxt)]
+                run = [a + b for a, b in zip(cur, nxt)]
+                cur = nxt
+                means = []
+                for v in vs:
+                    left = np.concatenate([up(v[:, -1])[:, None], v[:, :-1]], 1)
+                    right = np.concatenate([v[:, 1:], down(v[:, 0])[:, None]], 1)
+                    if border:
+                        left = np.where(x == 0, v, left)
+                        right = np.where(x == W - 1, v, right)
+                    means.append((left + v + right) / f(9))
+                sxx, syy, sxy = means
+                tr_half = (sxx + syy) * f(0.5)
+                d = (sxx - syy) * f(0.5)
+                res = tr_half - sqrt(d * d + sxy * sxy)
+                if r >= H:
+                    continue
+                lanes = slice(1, tk3.LANES_OUT + 1)
+                keep = x[lanes] < W
+                assert np.isnan(out[r, x[lanes][keep]]).all()  # each pixel written once
+                out[r, x[lanes][keep]] = res[lanes][keep]
+    return out
+
+
+def torch_sqrt(a):
+    """The plain version's square root on the CPU (not always correctly
+    rounded, so the model takes it to be compared bit for bit)."""
+    return torch.sqrt(torch.from_numpy(np.ascontiguousarray(a))).numpy()
+
+
+MODEL_SHAPES = [(37, 53), (1, 7), (7, 1), (1, 1), (2, 9), (9, 2), (50, 250)] + \
+    tile_edge_shapes()[:3]
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("shape", MODEL_SHAPES)
+def test_k3_block_model_equals_plain_version_bit_for_bit(shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    if dtype == "uint8":
+        img = rng.integers(0, 256, shape).astype(np.uint8)
+    else:
+        img = (rng.normal(size=shape) * 50).astype(np.float32)
+    want = tk3.min_eig_response_plain(torch.from_numpy(img)).numpy()
+    for resident in (1 << 30, 3):
+        g = tk3.geometry(*shape, resident=resident)
+        got = model_k3(img.astype(np.float32), g, torch_sqrt, separable=dtype == "uint8")
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("variant", tk3.VARIANTS)
+def test_k3_block_model_of_every_variant_equals_plain_version(variant):
+    """Every (cols, rows) the kernel is built in, on an image with
+    interior and border tiles and with the kernel's IEEE sqrt (np.sqrt)
+    against the plain version held to 1e-6 of the largest box sum."""
+    rng = np.random.default_rng(11)
+    img = rng.integers(0, 256, (70, 523)).astype(np.float32)
+    g = tk3.geometry(*img.shape, *variant)
+    assert any(tk3.tile_is_interior(g, *img.shape, t) for t in range(g.n_tiles))
+    want = tk3.min_eig_response_plain(torch.from_numpy(img)).numpy()
+    for separable in (False, True):  # the image holds bytes: both forms apply
+        np.testing.assert_array_equal(model_k3(img, g, torch_sqrt, separable), want)
+    np.testing.assert_allclose(model_k3(img, g, np.sqrt), want, rtol=0, atol=1e-6 * scale(img))
+
+
+def test_k3_pitch_helper_copies_only_views_with_spread_columns():
+    base = torch.from_numpy(np.random.default_rng(12).integers(0, 256, (40, 64)).astype(np.uint8))
+    cases = {  # view -> whether the wrapper must copy it
+        "contiguous": (base, False),
+        "row-cropped": (base[3:30, 5:50], False),
+        "misaligned base": (base.reshape(-1)[1:1 + 39 * 64].view(39, 64), False),
+        "one column": (base[:, 7:8], False),
+        "one row": (base[4:5, 2:40], False),
+        "one row, every third column": (base[4:5, ::3], True),
+        "every other column": (base[:, ::2], True),
+        "transposed": (base.t(), True),
+    }
+    for name, (view, copies) in cases.items():
+        x, pitch = tk3.pitched(view)
+        assert (x.data_ptr() != view.data_ptr()) == copies, name
+        assert x.dtype == torch.uint8 and torch.equal(x, view), name
+        assert x.shape[1] == 1 or x.stride(1) == 1, name
+        if x.shape[0] > 1:
+            assert pitch == x.stride(0), name
+    x, pitch = tk3.pitched(base[3:30, 5:50])
+    assert pitch == 64
+    x, _ = tk3.pitched(base.to(torch.float64)[:, 1:])
+    assert x.dtype == torch.float32 and x.stride(1) == 1
