@@ -49,7 +49,23 @@ Phases, each of which must pass or the script exits non-zero:
    extraction each;
 8. the per-frame stages of both paths (extract, multiPnP) re-run on the
    last frame, and one batched round of N candidates against N single
-   registrations: wall ms, device-busy ms and device operations.
+   registrations: wall ms, device-busy ms and device operations;
+9. the streamed image-only path: `run_SLAM_streaming 29 8 imageonly`
+   (slam3d_gx_torch.cli.run_slam_streaming) on the same orbit with
+   GFTT/SIFT, counts reset and read the same way: the output files,
+   keyframes within one of phase 6's, ATE, K3 once per extraction (the
+   padded frames of the last chunk included) and the equalize kernels
+   never, and no synchronizing CUDA operation in any chunk dispatch
+   that continues from the device's carry, i.e. all but the first and
+   one after a lostRecovery replay (torch.cuda.set_sync_debug_mode);
+   frames/s beside phase 6's;
+10. the streamed plane path: `run_SLAM_streaming 29 8 planes` with
+   SIFT/SIFT: the same checks against phase 5, `equalize_hist256` once
+   per extraction; the synchronizing operations of each chunk dispatch
+   and where they come from;
+11. the parity modes: `run_SLAM 4` with GFTT/SIFT, `detect_scope: plane`,
+   `plane_image_mode: splat` and `voxel_downsample_clouds: 1`:
+   `equalize_hist256` and K3 `max_planes` times per extraction, ATE.
 
 Prints a `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA device it exits 2 and
@@ -575,11 +591,15 @@ def write_run_dir(base: str, name: str, root: str, **extra) -> str:
 
 
 def run_path(kernels, entry, work: str, traj, loops: int, expect: dict,
-             min_keyframes: int = 2):
+             min_keyframes: int = 2, argv=None):
     """Drive one entry point for `loops` frames with every launch count
     set to 0 just before and read just after. `expect` maps each kernel
-    to whether the path must launch it once per extraction (True) or
-    never (False). Checks the output files, the keyframes and ATE."""
+    to its launches per extraction (True: one, False: none, or a count).
+    Checks the output files, the keyframes, the extractions (one per
+    frame read; a streamed run: init's, every frame of every chunk
+    dispatched, the padded ones included, and those of lostRecovery's
+    per-frame replays) and ATE. Returns the launches, the frontend and
+    the entry point's stats, with the tracked frames/s added ("fps")."""
     from slam3d_gx_torch.io import tum
     from slam3d_gx_torch.testing import synthetic
 
@@ -589,7 +609,7 @@ def run_path(kernels, entry, work: str, traj, loops: int, expect: dict,
         stats = {}
         kernels.reset_counts()
         t0 = time.perf_counter()
-        rc = entry(argv=[str(loops)], stats=stats)
+        rc = entry(argv=argv or [str(loops)], stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
@@ -605,29 +625,70 @@ def run_path(kernels, entry, work: str, traj, loops: int, expect: dict,
     lc_path = os.path.join(data, "lc.txt")
     loops_closed = sum(1 for _ in open(lc_path)) if os.path.exists(lc_path) else 0
     lost = open(os.path.join(data, "error_of_transform.log")).read().split().count("9999")
-    frame_ms = [s * 1e3 for s in stats["frame_seconds"]]
+    if "frame_seconds" in stats:
+        frames, tracking = len(stats["frame_seconds"]), sum(stats["frame_seconds"])
+        frame_ms = [s * 1e3 for s in stats["frame_seconds"]]
+        per_frame = (f"per-frame run() median {statistics.median(frame_ms):.3f} ms "
+                     f"(max {max(frame_ms):.3f}), ")
+    else:
+        frames, tracking = stats["frames"], stats["seconds"]
+        per_frame = f"{ge.dispatches} chunk dispatches of {ge.chunk}, "
+    stats["fps"] = frames / tracking
     reg = ge.batch_registrar
-    print(f"  {type(ge).__name__}: frames {len(frame_ms) + 1}, extractions {ge.extractions}, "
+    print(f"  {type(ge).__name__}: frames {frames + 1}, extractions {ge.extractions}, "
           f"keyframes {len(kf)}, loop closures {loops_closed}, lost frames {lost}, graph edges "
           f"{len(ge.opt.graph.edges)}, LM iterations {ge.opt.last_iters}, batched verifier "
           f"calls {reg.calls} over {reg.pairs} pairs", flush=True)
-    print(f"  ATE {ate:.6f} m (bound {ATE_BOUND_M}), per-frame run() median "
-          f"{statistics.median(frame_ms):.3f} ms (max {max(frame_ms):.3f}), whole run "
-          f"{wall:.3f} s", flush=True)
+    print(f"  ATE {ate:.6f} m (bound {ATE_BOUND_M}), {per_frame}tracking {tracking:.3f} s for "
+          f"{frames} frames ({stats['fps']:.3f} frames/s), whole run {wall:.3f} s", flush=True)
     print(f"  launches in this path: {launches}", flush=True)
     for name in OUTPUTS:
         assert os.path.getsize(os.path.join(data, name)) > 0, name
     assert len(kf) == len(ge.keyframes) >= min_keyframes, (len(kf), len(ge.keyframes))
-    # one extraction per frame read: the last run() also extracts the
-    # frame after it, when the dataset has one
-    assert ge.extractions in (loops + 1, loops + 2), ge.extractions
+    assert frames == loops, (frames, loops)
+    if "frame_seconds" in stats:
+        # one extraction per frame read: the last run() also extracts the
+        # frame after it, when the dataset has one
+        assert ge.extractions in (loops + 1, loops + 2), ge.extractions
+    else:
+        print(f"  extractions: 1 + {ge.dispatches} dispatches x {ge.chunk} + "
+              f"{ge.replay_extractions} in lostRecovery replays", flush=True)
+        assert ge.dispatches >= -(-loops // ge.chunk), ge.dispatches
+        assert ge.extractions == 1 + ge.chunk * ge.dispatches + ge.replay_extractions, (
+            ge.extractions, ge.dispatches, ge.replay_extractions)
     assert np.isfinite(ate) and ate < ATE_BOUND_M, ate
     feats = ge.keyframes[-1].features
     assert feats.desc.device.type == "cuda" and feats.uv.device.type == "cuda"
-    for k, on_path in expect.items():
-        want = ge.extractions if on_path else 0
+    for k, per in expect.items():
+        want = ge.extractions * int(per)
         assert launches[k] == want, f"{k}: {launches[k]} launches, expected {want}"
-    return launches, ge
+    return launches, ge, stats
+
+
+def check_streamed(stats, per_frame_ge, per_frame_stats, label: str, syncs_allowed: bool):
+    """A streamed run beside its per-frame run: keyframes within one,
+    frames/s side by side, and the synchronizing operations of each chunk
+    dispatch with where they come from. Without `syncs_allowed` every
+    dispatch that continues from the device's carry must have none (the
+    first, and one after a lostRecovery replay, build it from the host)."""
+    import collections
+
+    ge = stats["graphic_end"]
+    n_kf, n_ref = len(ge.keyframes), len(per_frame_ge.keyframes)
+    print(f"  keyframes {n_kf} streamed, {n_ref} per frame; {stats['fps']:.3f} frames/s "
+          f"streamed in chunks of {ge.chunk}, {per_frame_stats['fps']:.3f} frames/s per frame "
+          f"({stats['fps'] / per_frame_stats['fps']:.3f}x)", flush=True)
+    assert abs(n_kf - n_ref) <= 1, (n_kf, n_ref)
+    syncs = stats["chunk_syncs"]
+    assert len(syncs) == ge.dispatches and syncs[0][0], (len(syncs), ge.dispatches)
+    later = collections.Counter(src for from_host, d in syncs if not from_host for src in d)
+    first = collections.Counter(src for from_host, d in syncs if from_host for src in d)
+    print(f"  {label}: synchronizing operations per chunk dispatch "
+          f"{[len(d) for _, d in syncs]} ({sum(h for h, _ in syncs)} with the carry from the "
+          f"host); in those with the device's carry, by source: {dict(later) or 'none'}; in "
+          f"those with the host's: {dict(first)}", flush=True)
+    if not syncs_allowed:
+        assert not later, f"{label}: a chunk dispatch on the device's carry synchronized: {later}"
 
 
 def profiled(name: str, fn, reps: int = 5) -> None:
@@ -694,7 +755,7 @@ def main(argv=()) -> int:
         return 2
     sys.path.insert(0, REPO)
     from slam3d_gx_torch import kernels
-    from slam3d_gx_torch.cli import run_slam, run_slam_imageonly
+    from slam3d_gx_torch.cli import run_slam, run_slam_imageonly, run_slam_streaming
     from slam3d_gx_torch.kernels import build, equalize, min_eig
     from slam3d_gx_torch.ops import imageproc
 
@@ -745,7 +806,7 @@ def main(argv=()) -> int:
 
     phase("plane path: run_SLAM on a synthetic 640x480 orbit (SIFT)")
     work_planes = write_run_dir(base, "planes", root)
-    launches, ge_planes = run_path(
+    launches, ge_planes, stats_planes = run_path(
         kernels, run_slam.run, work_planes, traj, FRAMES - 1,
         {"equalize_hist256": True, "histogram256": False, "apply_lut256": False,
          "min_eig_response": False})
@@ -753,7 +814,7 @@ def main(argv=()) -> int:
     phase("image-only path: run_SLAM_imageonly on the same orbit (GFTT)")
     work_image = write_run_dir(base, "image", root, detector_name="GFTT",
                                descriptor_name="SIFT")
-    launches_image, ge_image = run_path(
+    launches_image, ge_image, stats_image = run_path(
         kernels, run_slam_imageonly.main, work_image, traj, FRAMES - 1,
         {"equalize_hist256": False, "histogram256": False, "apply_lut256": False,
          "min_eig_response": True})
@@ -772,6 +833,37 @@ def main(argv=()) -> int:
     phase("per-frame stages, re-run on each path's last frame")
     stage_times(ge_planes, work_planes, rounds=False)
     stage_times(ge_image, work_image, rounds=True)
+
+    chunk = 8
+    phase(f"streamed image-only path: run_SLAM_streaming {FRAMES - 1} {chunk} imageonly (GFTT)")
+    work = write_run_dir(base, "stream_image", root, detector_name="GFTT",
+                         descriptor_name="SIFT")
+    _, _, stats = run_path(
+        kernels, run_slam_streaming.main, work, traj, FRAMES - 1,
+        {"equalize_hist256": False, "histogram256": False, "apply_lut256": False,
+         "min_eig_response": True},
+        argv=[str(FRAMES - 1), str(chunk), "imageonly"])
+    check_streamed(stats, ge_image, stats_image, "image-only", syncs_allowed=False)
+
+    phase(f"streamed plane path: run_SLAM_streaming {FRAMES - 1} {chunk} planes (SIFT)")
+    work = write_run_dir(base, "stream_planes", root)
+    _, _, stats = run_path(
+        kernels, run_slam_streaming.main, work, traj, FRAMES - 1,
+        {"equalize_hist256": True, "histogram256": False, "apply_lut256": False,
+         "min_eig_response": False},
+        argv=[str(FRAMES - 1), str(chunk), "planes"])
+    check_streamed(stats, ge_planes, stats_planes, "planes", syncs_allowed=True)
+
+    planes = 3
+    phase("parity modes: run_SLAM 4 with GFTT, detect_scope plane, plane_image_mode splat, "
+          "voxel_downsample_clouds 1")
+    work = write_run_dir(base, "parity_modes", root, detector_name="GFTT",
+                         descriptor_name="SIFT", max_planes=planes, detect_scope="plane",
+                         plane_image_mode="splat", voxel_downsample_clouds=1)
+    run_path(kernels, run_slam.run, work, traj, 4,
+             {"equalize_hist256": planes, "histogram256": False, "apply_lut256": False,
+              "min_eig_response": planes},
+             min_keyframes=1)
 
     tpu = "slam3d_gx_tpu/ops/pallas_kernels.py"
     eq_cu = "slam3d_gx_torch/csrc/equalize.cu"

@@ -57,16 +57,13 @@ from .state import FrameFeatures, Keyframe, result_to_host
 INFO_VISUAL = np.diag([100.0] * 6)
 
 # config values that select code paths this package does not carry yet,
-# each with the ROADMAP.md queue 1 item that ports it (the extractor
-# refuses detect_scope: plane and plane_image_mode: splat itself)
+# each with the ROADMAP.md queue 1 item that ports it
 _UNPORTED = (
     ("mesh_devices", lambda v: int(float(v)) != 0, "item 18 (multi-device mesh)"),
     ("loop_closure_scored", lambda v: int(float(v)) != 0,
      "item 17 (scored loop closure, parallel/lcdb.py)"),
     ("finalize_prefilter", lambda v: int(float(v)) != 0,
      "item 17 (finalize pre-filter, parallel/lcdb.py)"),
-    ("voxel_downsample_clouds", lambda v: v.strip().lower() in ("1", "yes", "true", "on"),
-     "item 16 (voxel_downsample_clouds)"),
 )
 
 
@@ -104,6 +101,8 @@ class GraphicEnd:
         self.use_odometry = p.get_bool("use_odometry")
         self.error_odometry = p.get_float("error_odometry")
         self.z_filter = p.get_float("z_filter")
+        self.grid_leaf = p.get_float("grid_leaf")
+        self.voxel_downsample_clouds = p.get_bool("voxel_downsample_clouds")
         self.max_kp = p.get_int("max_keypoints")
         self.hypotheses = p.get_int("ransac_hypotheses")
         self.seed = p.get_int("seed")
@@ -235,11 +234,25 @@ class GraphicEnd:
         dev = self.device
         cloud = torch.from_numpy(xyz_p).to(dev)
         # z passthrough (reference src/GraphicEnd.cpp:283-293)
-        self.curr_cloud_mask = pointcloud.passthrough_z(
-            cloud, torch.from_numpy(mask).to(dev), 0.0, self.z_filter)
+        mask = pointcloud.passthrough_z(cloud, torch.from_numpy(mask).to(dev), 0.0,
+                                        self.z_filter)
+        if self.voxel_downsample_clouds:
+            cloud, mask = self._voxel_grid(cloud, mask)
         self.curr_cloud = cloud
+        self.curr_cloud_mask = mask
         self.curr_gray = torch.tensor(gray, device=dev)
         self.curr_depth = torch.from_numpy(depth.astype(np.int32)).to(dev)
+
+    def _voxel_grid(self, cloud, mask):
+        """The reference's VoxelGrid(grid_leaf) before the plane RANSAC
+        (src/GraphicEnd.cpp:287-295), config key `voxel_downsample_clouds`;
+        off, the extractor's strided decimation plays its part. The voxels
+        are packed to the front of a capacity of 4x the extractor's point
+        budget, so its stride stays 4 and keeps voxels uniformly."""
+        xyz, _, mask = pointcloud.voxel_downsample(
+            cloud, torch.zeros_like(cloud), mask, self.grid_leaf,
+            capacity=min(cloud.shape[0], 4 * pipeline.PLANE_POINTS))
+        return xyz, mask
 
     def _extract_present(self) -> FrameFeatures:
         self.extractions += 1

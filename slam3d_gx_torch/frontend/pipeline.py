@@ -3,9 +3,10 @@
 
 - plane-frame extraction mirrors extractPlanesAndGenerateImage + the
   per-plane keypoints / descriptors / compute3dPosition of the reference
-  (src/GraphicEnd.cpp:128-134, 353-457) in the reference package's
-  frame scope: one equalize + detect + describe pass per frame, keypoints
-  assigned to planes by the analytic membership masks;
+  (src/GraphicEnd.cpp:128-134, 353-457): in frame scope (the default) one
+  equalize + detect + describe pass per frame, keypoints assigned to
+  planes by their coverage masks; in plane scope the reference's pass
+  per plane;
 - image-frame extraction mirrors GraphicEnd2::extractKPandDesp and its
   zero-depth-dropping compute3dPosition (src/GraphicEnd2.cpp:203-233);
 - multipnp_planes follows GraphicEnd::multiPnP step for step
@@ -98,36 +99,49 @@ def build_plane_extractor(
     FrameFeatures with P = max_planes.
 
     The plane fit sees a strided decimation of the cloud to
-    PLANE_POINTS points over its fixed capacity. Only the reference
-    package's defaults are carried: frame scope and membership images;
-    `detect_scope: plane` and `plane_image_mode: splat` are ROADMAP.md
-    queue 1 item 16.
+    PLANE_POINTS points over its fixed capacity.
+
+    plane_image_mode (config key `plane_image_mode`): "membership"
+    computes each plane's coverage image from the plane equation at full
+    resolution; "splat" paints the decimated cloud's inliers with the
+    reference's depth-adaptive squares (src/GraphicEnd.cpp:390-420,
+    `imageproc.splat_plane_image`).
+
+    detect_scope (config key `detect_scope`): "frame" equalizes, detects
+    and describes once on the whole frame and gives each plane its
+    top-max_kp member keypoints (frame_kp_budget detections in all, 0 =
+    max_kp); "plane" is the reference's per-plane pass
+    (src/GraphicEnd.cpp:128-134, GraphicEnd.h:97-111): for each of the
+    P slots, equalizeHist of that plane's image, the detector restricted
+    to its mask, the descriptor on the full gray frame. The P slots run
+    one after the other, so on the card each extraction launches
+    `equalize_hist256` P times, and K3 P times with GFTT. The JAX
+    package takes GFTT's plain XLA response on this path (it vmaps the
+    slots); K3 computes the same function, held to that plain version
+    by its own tests.
     """
-    if plane_image_mode == "splat" or detect_scope == "plane":
-        raise NotImplementedError(
-            "plane_image_mode: splat and detect_scope: plane are not ported "
-            "yet: ROADMAP.md queue 1 item 16")
-    if plane_image_mode != "membership":
+    if plane_image_mode not in ("membership", "splat"):
         raise ValueError(f"plane_image_mode: {plane_image_mode!r}")
-    if detect_scope != "frame":
+    if detect_scope not in ("frame", "plane"):
         raise ValueError(f"detect_scope: {detect_scope!r}")
-    detect = registry.create_detector(detector_name, frame_kp_budget or max_kp)
+    budget = (frame_kp_budget or max_kp) if detect_scope == "frame" else max_kp
+    detect = registry.create_detector(detector_name, budget)
     describe = registry.create_descriptor(descriptor_name)
 
-    def extract(gray, depth, cloud_xyz, cloud_mask, sampler) -> FrameFeatures:
-        stride = max(1, cloud_xyz.shape[0] // PLANE_POINTS)
-        coeffs, _, valids, _ = plane_ransac.extract_planes(
-            cloud_xyz[::stride][:PLANE_POINTS], cloud_mask[::stride][:PLANE_POINTS],
-            sampler, max_planes=max_planes, dist_thresh=dist_thresh,
-            percent=percent, hypotheses=hypotheses)
-
+    def plane_images(gray, depth, dxyz, plane_masks, coeffs, valids):
+        if plane_image_mode == "splat":
+            H, W = gray.shape
+            return imageproc.splat_plane_image(
+                dxyz, plane_masks & valids[:, None], gray, intr.fx, intr.fy,
+                intr.cx, intr.cy, height=H, width=W)
         xyz_img, valid_img = pointcloud.backproject(
             depth, intr.fx, intr.fy, intr.cx, intr.cy, intr.factor)
         z = xyz_img[..., 2]
         valid_img = valid_img & (z > 0) & (z <= Z_MAX)
-        _, masks = imageproc.plane_membership_images(
+        return imageproc.plane_membership_images(
             xyz_img, valid_img, coeffs, valids, gray, dist_thresh)
 
+    def frame_scope(gray, depth, masks, coeffs, valids):
         # one pyramid + one descriptor pass for the whole frame; each
         # plane keeps its own top-max_kp member keypoints by response
         kps = detect(imageproc.equalize_hist(gray).to(torch.float32))
@@ -146,8 +160,32 @@ def build_plane_extractor(
             uv = F.pad(uv, (0, 0, 0, pad))
             desc = F.pad(desc, (0, 0, 0, pad))
         kp3d, v3 = compute_kp3d_plane(depth, uv, coeffs, intr)
+        return uv, kp3d, desc, (vals > -torch.inf) & v3
+
+    def plane_scope(gray, depth, images, masks, coeffs, valids):
+        out = []
+        for p in range(coeffs.shape[0]):
+            kps = detect(imageproc.equalize_hist(images[p]), masks[p])
+            kps = kps._replace(valid=kps.valid & valids[p])
+            desc = describe(gray, kps)
+            kp3d, v3 = compute_kp3d_plane(depth, kps.uv, coeffs[p], intr)
+            out.append((kps.uv, kp3d, desc, kps.valid & v3))
+        return (torch.stack(f) for f in zip(*out))
+
+    def extract(gray, depth, cloud_xyz, cloud_mask, sampler) -> FrameFeatures:
+        stride = max(1, cloud_xyz.shape[0] // PLANE_POINTS)
+        dxyz = cloud_xyz[::stride][:PLANE_POINTS]
+        coeffs, plane_masks, valids, _ = plane_ransac.extract_planes(
+            dxyz, cloud_mask[::stride][:PLANE_POINTS],
+            sampler, max_planes=max_planes, dist_thresh=dist_thresh,
+            percent=percent, hypotheses=hypotheses)
+        images, masks = plane_images(gray, depth, dxyz, plane_masks, coeffs, valids)
+        if detect_scope == "frame":
+            uv, kp3d, desc, kpv = frame_scope(gray, depth, masks, coeffs, valids)
+        else:
+            uv, kp3d, desc, kpv = plane_scope(gray, depth, images, masks, coeffs, valids)
         return FrameFeatures(coeffs=coeffs, plane_valid=valids, uv=uv, kp3d=kp3d,
-                             desc=desc, kp_valid=(vals > -torch.inf) & v3)
+                             desc=desc, kp_valid=kpv)
 
     return extract
 

@@ -17,6 +17,14 @@ A batched round gives pair i the key `jax.random.split(key, B)[i]`
 (the frontends split `key` once more per chunk of 32 first);
 `pnp_uniforms_batch` stacks the pairs' draws into the batch the port's
 batched multiPnP takes.
+
+A streamed chunk (frontend/streaming.py) draws per frame from the key
+`keys[j]` of `jax.random.split(chunk_key, chunk)`, split again as
+`k_ext, k_pnp, k_r, k_rr = jax.random.split(keys[j], 4)`: the
+extraction's Gumbel noise from `k_ext` (plane frontend only) and the
+uniforms of the main, rescue and keyframe->last registrations from
+`k_pnp`, `k_r` and `k_rr`, each as for one pair above. `chunk_draws`
+turns them into the port tracker's draws for the whole chunk.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from .frontend.state import FrameFeatures
+from .frontend.streaming import ChunkDraws
 from .ops.plane_ransac import GumbelSampler
 
 _FIELDS = FrameFeatures._fields
@@ -81,3 +90,16 @@ def pnp_uniforms_batch(pairs: Sequence, device) -> torch.Tensor:
     block -> (B,H,3)."""
     return torch.as_tensor(np.stack([np.asarray(p, np.float32) for p in pairs]),
                            device=device)
+
+
+def chunk_draws(frames: Sequence[Mapping], device) -> ChunkDraws:
+    """Per frame of a chunk, a mapping with the uniforms of its three
+    registrations, "pnp", "rescue" and "keyframe_last" (each (H,3) for
+    an image pair or (P+2,H,3) for a plane pair, as `pnp_uniforms`
+    stacks them), and on the plane path its extraction's "gumbel" noise
+    ((P,B,3,N), as `plane_sampler` takes it) -> the tracker's draws."""
+    u = np.stack([np.stack([np.asarray(f[k], np.float32)
+                            for k in ("pnp", "rescue", "keyframe_last")]) for f in frames])
+    samplers = ([plane_sampler(f["gumbel"], device) for f in frames]
+                if "gumbel" in frames[0] else None)
+    return ChunkDraws(samplers, torch.as_tensor(u, device=device))

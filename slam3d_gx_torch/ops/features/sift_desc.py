@@ -12,6 +12,7 @@ is one batched matrix product.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -57,6 +58,13 @@ def _patch_data(img: torch.Tensor, kps: Keypoints):
     return mag, ori, rx, ry
 
 
+@functools.lru_cache(maxsize=None)
+def _smoothing_taps(device: torch.device) -> torch.Tensor:
+    """[1,4,6,4,1]/16 on `device`, copied there once: a copy from the
+    host waits for the stream."""
+    return torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=device) / 16.0
+
+
 def _orientations(mag, ori, rx, ry, size):
     """cv::SIFT calcOrientationHist on the window: 36-bin Gaussian-weighted
     histogram within radius 3*1.5*scl, circular smoothing, parabolic peak."""
@@ -74,7 +82,7 @@ def _orientations(mag, ori, rx, ry, size):
     hist = torch.sum(mw[..., None] * torch.clamp(1.0 - d, min=0.0), dim=1)  # (K,36)
 
     # circular [1,4,6,4,1]/16 smoothing
-    k = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=mag.device) / 16.0
+    k = _smoothing_taps(mag.device)
     idx = (torch.arange(ORI_BINS, device=mag.device)[:, None]
            + torch.arange(-2, 3, device=mag.device)[None, :]) % ORI_BINS
     hist = torch.sum(hist[:, idx] * k, dim=2)

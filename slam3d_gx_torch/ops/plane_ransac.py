@@ -98,8 +98,9 @@ def extract_planes(xyz, mask, sampler, max_planes: int = 3,
         counts = torch.where(ok, inl.sum(dim=1), -1)
         best = torch.argmax(counts)
 
-        # two refine rounds (PCL optimizeCoefficients analog)
-        m = inl[best]
+        # two refine rounds (PCL optimizeCoefficients analog); a 0-d
+        # index tensor would be read back to the host, a (1,) one is not
+        m = inl[best.reshape(1)][0]
         coeff = _plane_lsq(xyz, m.to(xyz.dtype))
         m = (_point_plane_abs_dist(xyz, coeff) < dist_thresh) & remaining
         coeff = _plane_lsq(xyz, m.to(xyz.dtype))

@@ -72,3 +72,51 @@ def estimate_depth_scale(xyz, depth, fx, fy, cx, cy, factor,
     if sel.sum() < min_samples:
         return 1.0
     return float(np.median(zc[sel] / zd[sel]))
+
+
+_INT32_MAX = 2**31 - 1
+
+
+def voxel_downsample(xyz, rgb, mask, leaf: float, capacity: int | None = None):
+    """VoxelGrid downsample (reference src/GraphicEnd.cpp:287-295, PCL's
+    VoxelGrid with downsample_all_data): the centroid of the position and
+    of the color of the points in each voxel.
+
+    Args:
+      xyz: (N,3) float32; rgb: (N,3) float32 (zeros if uncolored);
+      mask: (N,) bool; leaf: voxel edge; capacity: output rows (default N).
+    Returns:
+      (C,3) xyz, (C,3) rgb, (C,) bool with C = capacity. Valid voxels are
+      packed to the front in voxel-id order (PCL's sorted-leaf order);
+      voxels past the capacity are dropped.
+    """
+    N = xyz.shape[0]
+    C = capacity or N
+    dev = xyz.device
+    # the reference divides in float32 on the device (1 / leaf, then a product)
+    inv_leaf = float(np.float32(1.0) / np.float32(leaf))
+    ijk = torch.floor(xyz * inv_leaf).to(torch.int32)
+    # shift to non-negative with the masked minima, so ids order as PCL's
+    lo = torch.where(mask[:, None], ijk, _INT32_MAX).amin(dim=0)
+    ijk = ijk - lo
+    span = torch.where(mask[:, None], ijk, -1).amax(dim=0) + 1
+    ids = ijk[:, 0] * (span[1] * span[2]) + ijk[:, 1] * span[2] + ijk[:, 2]
+    ids = torch.where(mask, ids, _INT32_MAX)
+
+    order = torch.argsort(ids, stable=True)
+    ids_s = ids[order]
+    valid_s = ids_s != _INT32_MAX
+    is_start = torch.ones_like(valid_s)
+    is_start[1:] = ids_s[1:] != ids_s[:-1]
+    is_start &= valid_s
+    seg = torch.cumsum(is_start.to(torch.int64), dim=0) - 1
+    # invalid points and voxels past the capacity go to the overflow row C
+    seg = torch.where(valid_s & (seg < C), seg, C)
+
+    cnt = torch.zeros(C + 1, dtype=torch.float32, device=dev).index_add_(
+        0, seg, valid_s.to(torch.float32))[:C]
+    sums = torch.zeros((C + 1, 6), dtype=torch.float32, device=dev).index_add_(
+        0, seg, torch.cat([xyz, rgb], dim=1)[order].to(torch.float32))[:C]
+    out_mask = cnt > 0
+    denom = torch.where(out_mask, cnt, 1.0)[:, None]
+    return sums[:, :3] / denom, sums[:, 3:] / denom, out_mask

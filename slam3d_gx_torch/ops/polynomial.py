@@ -52,7 +52,9 @@ def quartic_roots(coeffs: torch.Tensor, iters: int = 24) -> torch.Tensor:
         return (((y + q[0]) * y + q[1]) * y + q[2]) * y + q[3]
 
     # standard DK initialization (0.4+0.9i)^k
-    base = torch.tensor(0.4 + 0.9j, dtype=torch.complex64, device=coeffs.device)
+    # made by a fill on the device: a tensor built from host data would be a
+    # copy that waits for the stream
+    base = torch.full((), 0.4 + 0.9j, dtype=torch.complex64, device=coeffs.device)
     z = [_int_pow(base, k + 1).expand(q[0].shape) for k in range(4)]
     for _ in range(iters):
         z0, z1, z2, z3 = z

@@ -115,14 +115,28 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("key,value", [
     ("mesh_devices", 2), ("loop_closure_scored", 1), ("finalize_prefilter", 8),
-    ("detect_scope", "plane"), ("plane_image_mode", "splat"),
-    ("voxel_downsample_clouds", 1), ("detector_name", "ORB"),
+    ("detector_name", "ORB"),
 ])
 def test_unported_config_values_raise(dataset, key, value):
     root, _ = dataset
     params = ParameterReader(None, overrides=overrides(root, **{key: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         GraphicEnd(params, device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("detect_scope", "plane"), ("plane_image_mode", "splat"), ("voxel_downsample_clouds", 1),
+])
+def test_ported_config_values_build_a_frontend(dataset, tmp_path, key, value):
+    """The parity modes run: one frame registered against the first."""
+    root, _ = dataset
+    params = ParameterReader(None, overrides=overrides(root, **{key: value}))
+    ge = GraphicEnd(params, data_dir=str(tmp_path), device="cpu")
+    ge.init(SLAMEnd(device="cpu"))
+    ge.run()
+    # frames 1 and 2, and frame 3 dispatched while frame 2 is read back
+    assert ge.extractions == 3 and ge.index == 3
+    assert ge.keyframes[0].features.uv.shape == (3, 256, 2)
 
 
 @pytest.mark.parametrize("detector", ["GFTT", "HARRIS"])
