@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from ..config import CameraIntrinsics
 from ..ops import imageproc, lie, match, plane_ransac, pnp, pointcloud
 from ..ops.features import registry
-from ..ops.features.common import pixel_index
+from ..ops.features.common import pixel_index, top_k
 from .state import FrameFeatures, MultiPnPResult
 
 # point budget the plane-RANSAC stage decimates the cloud to
@@ -49,6 +49,7 @@ PLANE_POINTS = 8192
 # farthest depth (m) a pixel may have to join a plane's membership image
 Z_MAX = 7.0
 # reprojection threshold (px) of the pooled solve (src/GraphicEnd.cpp:595)
+# and of the image path's one solve
 POOLED_REPROJ = 8.0
 
 
@@ -151,7 +152,7 @@ def build_plane_extractor(
         score = torch.where(in_plane & kps.valid & valids[:, None],
                             kps.response, -torch.inf)
         k_eff = min(max_kp, score.shape[1])
-        vals, idx = torch.topk(score, k_eff, dim=-1)
+        vals, idx = top_k(score, k_eff)
         uv, desc = kps.uv[idx], desc1[idx]
         if k_eff < max_kp:
             # a budget below max_kp cannot fill a plane: pad invalid
@@ -244,6 +245,7 @@ def build_multipnp_planes(
     intr: CameraIntrinsics,
     error_threshold: float = 1.0,
     match_floor: float = 0.0,
+    pooled_reproj: float = POOLED_REPROJ,
     refine_mode: str = "tiered",
 ) -> Callable:
     """GraphicEnd::multiPnP (src/GraphicEnd.cpp:557-659).
@@ -253,6 +255,10 @@ def build_multipnp_planes(
     solve and the 3 px solve. With a leading batch axis B on the features
     and on u, the B pairs are registered together and every field of the
     result has that axis.
+
+    pooled_reproj: px threshold of the pooled RANSAC, 8 in the frontend
+    (src/GraphicEnd.cpp:595); exp1_2's MatchingPlanar reads it from
+    `ransac_accuracy` (exp1_2.cpp:465-467).
 
     refine_mode (config key `pnp_refine_mode`): "tiered" (default) skips
     the Gauss-Newton polish in the per-plane solves (only their inlier
@@ -289,9 +295,9 @@ def build_multipnp_planes(
         img = img.reshape(B, P * K, 2)
         pooled = (res_p.inliers & res_p.ok[:, None]).reshape(B, P * K)
 
-        # global RANSAC at 8 px (src/GraphicEnd.cpp:595)
+        # global RANSAC at pooled_reproj px (src/GraphicEnd.cpp:595)
         res1 = pnp.solve_pnp_ransac(obj, img, pooled, *cam, u[:, P],
-                                    reproj_thresh=POOLED_REPROJ,
+                                    reproj_thresh=pooled_reproj,
                                     refine_iters=pooled_iters)
         n1 = res1.n_inliers
         have_any = pooled.sum(dim=-1) >= 3

@@ -1,5 +1,5 @@
-"""Feature detectors/descriptor behind the reference's config names
-(SIFT, GFTT, HARRIS)."""
+"""Feature detectors/descriptors behind the reference's config names
+(SIFT, SURF, STAR, GFTT, HARRIS, FAST, GridFAST, ORB)."""
 
 from .common import Keypoints  # noqa: F401
-from .registry import create_descriptor, create_detector  # noqa: F401
+from .registry import create_descriptor, create_detector, detect_and_describe  # noqa: F401

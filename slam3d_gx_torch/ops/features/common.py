@@ -41,6 +41,15 @@ def nms(response: torch.Tensor, radius: int = 1) -> torch.Tensor:
     return torch.where(response >= pooled, response, -torch.inf)
 
 
+def top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last axis, equal values
+    in index order as lax.top_k takes them: torch.topk leaves their order
+    to the device, so the card and the CPU would list tied keypoints (and
+    draw RANSAC triplets from them) differently."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def topk_keypoints(response, k: int, threshold=0.0, nms_radius: int = 1,
                    border: int = 0, size: float = 7.0) -> Keypoints:
     """Response map (H,W) -> top-k keypoints above threshold after NMS."""
@@ -50,7 +59,7 @@ def topk_keypoints(response, k: int, threshold=0.0, nms_radius: int = 1,
         inside = torch.zeros_like(r, dtype=torch.bool)
         inside[border:H - border, border:W - border] = True
         r = torch.where(inside, r, -torch.inf)
-    vals, idx = torch.topk(r.reshape(-1), k)
+    vals, idx = top_k(r.reshape(-1), k)
     v = (idx // W).to(torch.float32)
     u = (idx % W).to(torch.float32)
     valid = vals > threshold

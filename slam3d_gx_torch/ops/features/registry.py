@@ -1,10 +1,22 @@
 """Detector/descriptor factory behind the reference's config names
 (counterpart of slam3d_gx_tpu/ops/features/registry.py).
 
-Carried: the detectors SIFT (DoG), GFTT (Shi-Tomasi, kernel K3 on the
-card) and HARRIS, and the SIFT descriptor. Every other name of the
-reference's zoo raises NotImplementedError naming the ROADMAP.md item
-that ports it.
+cv::FeatureDetector::create / DescriptorExtractor::create as the
+reference calls them (src/GraphicEnd.cpp:63-65). Names:
+
+  SIFT      -> DoG detector / 128-d SIFT descriptor
+  SURF      -> fast-Hessian box-filter detector (surf.py) / 64-d SURF
+               descriptor (surf_desc.py); SURF_SIFT and SURF-SIFT select
+               the SIFT descriptor
+  GFTT      -> Shi-Tomasi (kernel K3 on the card); HARRIS -> Harris
+  FAST      -> FAST-9/16; GRIDFAST -> grid-budgeted FAST (fast.py)
+  STAR      -> CenSurE bi-level center-surround detector (star.py)
+  ORB       -> grid FAST detector / 256-bit rotated-BRIEF descriptor
+               (orb.py; BRIEF names the same descriptor)
+
+The JAX package's `unbatched` flag of create_detector only picks a
+Pallas layout for GFTT; here GFTT always launches K3 for an image on
+the card, so the flag does not exist.
 """
 
 from __future__ import annotations
@@ -14,41 +26,26 @@ from typing import Callable, Optional
 
 import torch
 
-from . import dog, harris, sift_desc
+from . import dog, fast, harris, orb, sift_desc, star, surf, surf_desc
 from .common import Keypoints, apply_mask
-
-# names of the reference's zoo that later slices port (ROADMAP.md queue 1)
-_LATER = {
-    "SURF": "item 15 (detector and descriptor zoo)",
-    "SURF_SIFT": "item 15 (detector and descriptor zoo)",
-    "SURF-SIFT": "item 15 (detector and descriptor zoo)",
-    "STAR": "item 15 (detector and descriptor zoo)",
-    "FAST": "item 15 (detector and descriptor zoo)",
-    "GRIDFAST": "item 15 (detector and descriptor zoo)",
-    "ORB": "item 15 (detector and descriptor zoo)",
-    "BRIEF": "item 15 (detector and descriptor zoo)",
-}
-
-
-def _unsupported(kind: str, name: str):
-    key = name.strip().upper()
-    if key in _LATER:
-        return NotImplementedError(
-            f"{kind} {name!r} is not ported yet: ROADMAP.md queue 1 {_LATER[key]}")
-    return ValueError(f"unknown {kind} name: {name!r}")
 
 
 def create_detector(name: str, max_kp: int = 512) -> Callable[..., Keypoints]:
     """Returns detect(img, mask=None) -> Keypoints."""
+    bases = {
+        "SIFT": dog.detect_sift,
+        "SURF": surf.detect_surf,
+        "STAR": star.detect_star,
+        "GFTT": harris.detect_gftt,
+        "HARRIS": functools.partial(harris.detect_gftt, use_harris=True),
+        "FAST": fast.detect_fast,
+        "GRIDFAST": fast.detect_grid_fast,
+        "ORB": fast.detect_grid_fast,
+    }
     key = name.strip().upper()
-    if key == "SIFT":
-        base = functools.partial(dog.detect_sift, max_kp=max_kp)
-    elif key == "GFTT":
-        base = functools.partial(harris.detect_gftt, max_kp=max_kp)
-    elif key == "HARRIS":
-        base = functools.partial(harris.detect_gftt, max_kp=max_kp, use_harris=True)
-    else:
-        raise _unsupported("detector", name)
+    if key not in bases:
+        raise ValueError(f"unknown detector name: {name!r}")
+    base = functools.partial(bases[key], max_kp=max_kp)
 
     def detect(img, mask: Optional[torch.Tensor] = None) -> Keypoints:
         kps = base(img)
@@ -60,16 +57,44 @@ def create_detector(name: str, max_kp: int = 512) -> Callable[..., Keypoints]:
 
 
 def create_descriptor(name: str):
-    """Returns describe(img, kps) -> (K,128) float32 descriptors."""
-    if name.strip().upper() != "SIFT":
-        raise _unsupported("descriptor", name)
-    return sift_desc.sift_descriptors
+    """Returns describe(img, kps) -> (K, descriptor_dim(name)) float32."""
+    key = name.strip().upper()
+    if key in ("SIFT", "SURF_SIFT", "SURF-SIFT"):
+        return sift_desc.sift_descriptors
+    if key == "SURF":
+        return surf_desc.surf_descriptors
+    if key in ("ORB", "BRIEF"):
+        return orb.orb_descriptors
+    raise ValueError(f"unknown descriptor name: {name!r}")
+
+
+def descriptor_dim(descriptor_name: str) -> int:
+    """The D of the (K,D) descriptors create_descriptor's function returns."""
+    key = descriptor_name.strip().upper()
+    if key == "SURF":
+        return 64
+    if key in ("ORB", "BRIEF"):
+        return orb.N_BITS
+    return 128
 
 
 def match_floor(descriptor_name: str) -> float:
     """Distance floor for the 3*min_dist good-match gate: 0 for the
-    SIFT family (the reference's no-floor behavior), 5.0 for binary
-    descriptors (the reference's exp1 floor)."""
+    float descriptors (the reference's no-floor behavior), 5.0 for the
+    binary ones, where one exact match would collapse the bound to zero
+    (the reference's exp1 floor, src/exp1/exp1.cpp:315-321)."""
     if descriptor_name.strip().upper() in ("ORB", "BRIEF"):
         return 5.0
     return 0.0
+
+
+def detect_and_describe(detector_name: str, descriptor_name: str, max_kp: int = 512):
+    """Returns run(img, mask=None) -> (Keypoints, (K,D) descriptors)."""
+    det = create_detector(detector_name, max_kp)
+    desc = create_descriptor(descriptor_name)
+
+    def run(img, mask=None):
+        kps = det(img, mask)
+        return kps, desc(img, kps)
+
+    return run

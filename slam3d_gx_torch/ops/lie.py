@@ -72,6 +72,20 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """(...,4) (qx,qy,qz,qw) -> (...,3,3); q need not be unit."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = 2.0 / torch.where(n > 0, n, 1.0)
+    xx, yy, zz = x * x * s, y * y * s, z * z * s
+    xy, xz, yz = x * y * s, x * z * s, y * z * s
+    wx, wy, wz = w * x * s, w * y * s, w * z * s
+    r0 = torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], -1)
+    r1 = torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], -1)
+    r2 = torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], -1)
+    return torch.stack([r0, r1, r2], -2)
+
+
 def inv_rodrigues(R: torch.Tensor) -> torch.Tensor:
     """(...,3,3) rotation -> (...,3) axis-angle with theta in [0, pi],
     through the quaternion (stable near theta = pi in fp32)."""

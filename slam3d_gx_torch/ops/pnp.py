@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from . import lie
+from .features.common import top_k
 from .polynomial import quartic_roots, real_roots_mask
 
 # candidates are first scored on a strided subset of this many points
@@ -227,12 +228,6 @@ def refine_pnp(rvec, tvec, obj, img, weights, fx, fy, cx, cy, iters: int = 10):
 # ---------------------------------------------------------------------------
 
 
-def _top_stable(counts: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest per row, ties in index order (lax.top_k's
-    order, which decides the winner among equal counts)."""
-    return torch.sort(counts, dim=-1, descending=True, stable=True).indices[..., :k]
-
-
 def solve_pnp_ransac(obj, img, mask, fx, fy, cx, cy, u,
                      reproj_thresh: float = 8.0, min_inliers: int = 4,
                      refine_iters: int = 10, guess_rvec=None,
@@ -289,7 +284,8 @@ def solve_pnp_ransac(obj, img, mask, fx, fy, cx, cy, u,
         votes = _inlier_votes(Rc, tc, obj[:, sub][:, :PRESCORE], img[:, sub][:, :PRESCORE],
                               mask[:, sub][:, :PRESCORE], fx, fy, cx, cy, th2)
         counts_s = torch.where(vf, votes.sum(dim=-1), -1)
-        top = _top_stable(counts_s, min(32, counts_s.shape[1]))
+        # ties in index order: lax.top_k's, which decides the winner among equal counts
+        top = top_k(counts_s, min(32, counts_s.shape[1]))[1]
         Rc, tc, vf = Rc[gi, top], tc[gi, top], vf[gi, top]
 
     if guess_rvec is not None:

@@ -109,18 +109,23 @@ def test_sift_descriptors_within_one(frame):
 
 
 def test_registry_carries_sift_only():
-    """SIFT is the one descriptor; of the detectors, GFTT and HARRIS are
-    carried too (tests/test_torch_gftt.py) and the rest still raise."""
-    assert treg.create_descriptor("sift") is tdesc.sift_descriptors
+    """Every detector and descriptor name of the reference resolves, in
+    any case; SIFT and its SURF_SIFT aliases give the SIFT descriptor;
+    the match floors are as before; an unknown name raises ValueError."""
+    for name in ("SIFT", "SURF", "STAR", "GFTT", "HARRIS", "FAST", "GridFAST", "GRIDFAST",
+                 "ORB", "orb"):
+        assert callable(treg.create_detector(name))
+    for name in ("sift", "SURF_SIFT", "SURF-SIFT"):
+        assert treg.create_descriptor(name) is tdesc.sift_descriptors
+    for name in ("SURF", "ORB", "BRIEF"):
+        assert callable(treg.create_descriptor(name))
     assert treg.match_floor("SIFT") == 0.0 and treg.match_floor("ORB") == 5.0
-    for name in ("STAR", "ORB", "SURF", "FAST"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            treg.create_detector(name)
-    assert callable(treg.create_detector("GFTT"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        treg.create_descriptor("SURF")
-    with pytest.raises(ValueError):
-        treg.create_detector("NOPE")
+    assert treg.match_floor("BRIEF") == 5.0 and treg.match_floor("SURF") == 0.0
+    for make in (treg.create_detector, treg.create_descriptor,
+                 lambda n: treg.detect_and_describe(n, "SIFT"),
+                 lambda n: treg.detect_and_describe("SIFT", n)):
+        with pytest.raises(ValueError):
+            make("NOPE")
 
 
 def test_match_ops_exact():

@@ -243,3 +243,25 @@ def test_image_only_entry_point_needs_a_card_unless_asked_for_the_cpu(dataset, m
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GraphicEnd2(ParameterReader(None, overrides=overrides(root)))
+
+
+@pytest.mark.parametrize("name,dim", [("ORB", 256), ("SURF", 64)])
+def test_graphic_end2_carries_other_descriptor_widths(dataset, tmp_path, name, dim):
+    """A 6-frame image-only run with detector and descriptor `name`: the
+    frontend, the keyframe FeatureStore and the batched verifier take
+    descriptors D wide, and the run writes the reference's files."""
+    root, _ = dataset
+    over = dict(overrides(root), detector_name=name, descriptor_name=name)
+    ge = GraphicEnd2(ParameterReader(None, overrides=over), data_dir=str(tmp_path), device="cpu")
+    slam = SLAMEnd(device="cpu")
+    ge.init(slam)
+    slam.init(ge)
+    for _ in range(5):
+        assert ge.run() == 0
+    slam.globalOptimizer.save(os.path.join(tmp_path, "final.g2o"))
+    ge.save_final_result()
+    for f in ("final.g2o", "final_after.g2o", "keyframe.txt", "error_of_transform.log"):
+        assert os.path.getsize(tmp_path / f) > 0, f
+    assert ge.keyframes[-1].features.desc.shape == (1, 256, dim)
+    assert ge.kf_store.gather([0]).desc.shape == (1, 1, 256, dim)
+    assert ge.batch_registrar.calls > 0

@@ -109,3 +109,30 @@ def test_multipnp_rejects_unrelated_frames():
         jax.random.PRNGKey(0)), 12))
     assert not ok
     np.testing.assert_array_equal(T, np.eye(4))
+
+
+def test_pooled_reproj_default_is_the_frontend_threshold(reference_run):
+    """Left at its default, pooled_reproj computes exactly what the
+    frontend's 8 px pooled solve computes."""
+    fa, fb, key, _ = reference_run
+    a, b, u = to_port(fa), to_port(fb), reference_uniforms(key)
+    default = result_to_host(tpipe.build_multipnp_planes(TINTR, refine_mode="full")(a, b, u, 12))
+    explicit = result_to_host(tpipe.build_multipnp_planes(
+        TINTR, pooled_reproj=8.0, refine_mode="full")(a, b, u, 12))
+    np.testing.assert_array_equal(default[0], explicit[0])
+    assert default[1:] == explicit[1:]
+
+
+def test_pooled_reproj_reaches_the_pooled_solve(reference_run):
+    """exp1_2's MatchingPlanar passes ransac_accuracy as pooled_reproj: at
+    3 px the port matches the JAX function given the same value."""
+    fa, fb, key, (_, _, inl_8px, _) = reference_run
+    with jax.disable_jit():
+        ref = jpipe.build_multipnp_planes(INTR, hypotheses=HYP, pooled_reproj=3.0,
+                                          refine_mode="full")(fa, fb, key, 12)
+        ref_T, ref_inl, ref_ok = np.asarray(ref.T), int(ref.inliers), bool(ref.ok)
+    port_fn = tpipe.build_multipnp_planes(TINTR, pooled_reproj=3.0, refine_mode="full")
+    T, _, inl, ok = result_to_host(port_fn(to_port(fa), to_port(fb), reference_uniforms(key), 12))
+    assert (inl, ok) == (ref_inl, ref_ok) and ok
+    assert inl <= inl_8px
+    np.testing.assert_allclose(T, ref_T, atol=1e-4)

@@ -115,7 +115,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("key,value", [
     ("mesh_devices", 2), ("loop_closure_scored", 1), ("finalize_prefilter", 8),
-    ("detector_name", "ORB"),
+    ("mesh_devices", -1),
 ])
 def test_unported_config_values_raise(dataset, key, value):
     root, _ = dataset
@@ -139,7 +139,8 @@ def test_ported_config_values_build_a_frontend(dataset, tmp_path, key, value):
     assert ge.keyframes[0].features.uv.shape == (3, 256, 2)
 
 
-@pytest.mark.parametrize("detector", ["GFTT", "HARRIS"])
+@pytest.mark.parametrize("detector", ["GFTT", "HARRIS", "SURF", "STAR", "FAST", "GridFAST",
+                                      "ORB"])
 def test_ported_detector_names_build_a_frontend(dataset, detector):
     root, _ = dataset
     params = ParameterReader(None, overrides=overrides(root, detector_name=detector))
