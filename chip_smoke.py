@@ -86,15 +86,36 @@ Phases, each of which must pass or the script exits non-zero:
    printed, with ORB frame 1's features equal, the descriptor width in
    the keyframe store, and the batched verifier with 256- and 64-wide
    descriptors on the first and last keyframes, inliers equal on at
-   least 95% of 256 single hypotheses.
+   least 95% of 256 single hypotheses;
+13. the post-tracking half: the CG pose-graph solver on the card on
+   `make_loopy_graph(2048, seed=1)` and `(1024, seed=2, outlier_frac=0.1)`
+   with 15 LM iterations, to tests/test_pose_graph_scale.py's bounds (ATE
+   < 0.06 m and < ATE0/30; < 0.1 m and < ATE0/8), with wall, LM and CG
+   iterations, host waits per LM step and their sources, and one LM step
+   profiled (device-busy ms, device operations); the 600-vertex graph of
+   tests/test_torch_posegraph_cg.py on the card against the CPU (the same
+   LM iterations, poses within 1e-3 m and 1e-3 rad), and a second one
+   (seed 3) printed beside the CPU's own move under a start nudged at
+   fp32's rounding; `run_SLAM_imageonly 29` (GFTT) with `loop_closure_scored: 1`
+   and `finalize_prefilter: 8` (ATE < 0.05 m, K3 once per extraction;
+   keyframes, lost frames, scored rounds, loop edges, pairs pruned), one
+   more scored round whose dispatch may not synchronize and whose
+   candidates equal the host path's, and `run_SLAM_streaming 29 8
+   imageonly` with scored loop closure to the same gate; `convert2pcd 1
+   31` over the orbit's frames (frame 1 equal to the CPU's), and
+   `generateTrajectory` and `saveOutput` over phase 6's keyframe.txt and
+   final_after.g2o: the trajectory's ATE equal to the run's within 1e-6 m,
+   the card's result.pcd against the CPU's (point counts within 0.1%,
+   99.9% of the points matched within 1e-4 m and colors within 1).
 
 Prints a `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`; each kernel's row also carries its
-launches on phase 12's paths ("launches_zoo"). Without a CUDA device it
-exits 2 and prints no result.
+launches on phase 12's paths ("launches_zoo") and on phase 13's
+("launches_post"). Without a CUDA device it exits 2 and prints no result.
 
     python3 chip_smoke.py --kernels   # phases 1-4 only
     python3 chip_smoke.py --zoo       # phases 1-4 and 12 only
+    python3 chip_smoke.py --post      # phases 1-4, 6 and 13 only
     python3 chip_smoke.py --sweep     # phases 1-2, then equalize_hist256 in
                                       # clusters of 8 and 16 blocks against K1 + K2,
                                       # and K3 in every built (columns, rows) a
@@ -104,6 +125,7 @@ exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -111,6 +133,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1207,6 +1230,253 @@ def zoo_phase(kernels, dev, base: str, root: str, traj) -> dict:
     return zoo
 
 
+# phase 13: the post-tracking half: the CG solver, scored loop closure,
+# the finalize pre-filter and the offline CLIs
+CG_CASES = ((2048, 1, {}, 0.06, 30), (1024, 2, {"outlier_frac": 0.1}, 0.1, 8))
+CG_PARITY_V = 600  # above 512 vertices: CG with the 1,024 bucket's cap of 512
+CG_PARITY_TOL = 1e-3  # m and rad, card against CPU on the seed-0 graph
+TRAJ_ATE_TOL = 1e-6  # m, trajectory.txt's 6 significant digits against the run
+CLOUD_SHARE = 0.999  # fused points matched within 1e-4 m, colors within 1
+CLOUD_COUNT_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def sync_sources(out: list):
+    """Append the source line of every synchronizing CUDA operation in
+    the block to `out` (torch.cuda.set_sync_debug_mode)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out.extend(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+               if "synchroniz" in str(w.message))
+
+
+def rotation_angle(Ra, Rb) -> float:
+    return float(np.arccos(np.clip((np.trace(Ra.T @ Rb) - 1.0) / 2.0, -1.0, 1.0)))
+
+
+def cg_phase(kernels, dev) -> dict:
+    """The CG solver on the card: the two graphs of
+    tests/test_pose_graph_scale.py to its bounds, one LM step profiled,
+    and a 600-vertex graph on the card against the CPU."""
+    import collections
+
+    from slam3d_gx_torch.testing import posegraph
+
+    kernels.reset_counts()
+    for n, seed, kw, ate_max, ratio in CG_CASES:
+        opt, gt, n_loops = posegraph.make_loopy_graph(n, seed=seed, device=dev, **kw)
+        ate0 = posegraph.graph_ate(opt, gt)
+        syncs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sync_sources(syncs):
+            chi = opt.optimize(n_iters=15, solver="cg")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ate1 = posegraph.graph_ate(opt, gt)
+        print(f"  {n} vertices, {len(opt.graph.edges)} edges ({n_loops} loops{', ' + str(kw) if kw else ''}): "
+              f"ATE {ate0:.6f} -> {ate1:.6f} m (bounds {ate_max} and ATE0/{ratio}), chi2 {chi:.6g}, "
+              f"wall {wall:.3f} s, LM iterations {opt.last_iters}, CG iterations per LM step "
+              f"{opt.last_cg_iters}, host waits {len(syncs)} ({len(syncs) / opt.last_iters:.2f} per LM "
+              f"step) from {dict(collections.Counter(syncs))}", flush=True)
+        assert opt.last_solver == "cg" and np.isfinite(chi)
+        assert ate1 < ate_max and ate1 < ate0 / ratio, (ate0, ate1)
+    # one LM step of the 2,048-vertex graph, from its drifted start
+    opt, _, _ = posegraph.make_loopy_graph(CG_CASES[0][0], seed=CG_CASES[0][1], device=dev)
+    start = {v: x.T.copy() for v, x in opt.graph.vertices.items()}
+
+    def one_step():
+        for v, T in start.items():
+            opt.graph.vertices[v].T = T.copy()
+        opt.optimize(n_iters=1, solver="cg")
+
+    profiled(f"CG LM step at {CG_CASES[0][0]} vertices", one_step, reps=2)
+    print(f"  CG iterations of that step: {opt.last_cg_iters}", flush=True)
+
+    def solve(where, seed: int, nudge: bool = False):
+        """The CG solve of a CG_PARITY_V-vertex graph; with `nudge`, its
+        start translations scaled by 1 + 2^-23, a change at fp32's
+        rounding."""
+        opt, _, _ = posegraph.make_loopy_graph(CG_PARITY_V, seed=seed, device=where)
+        if nudge:
+            for x in opt.graph.vertices.values():
+                if not x.fixed:
+                    x.T[:3, 3] *= 1.0 + 2.0 ** -23
+        t0 = time.perf_counter()
+        opt.optimize(n_iters=15)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        return opt, time.perf_counter() - t0
+
+    def apart(a, b):
+        """(m, rad): the largest translation and rotation between the two
+        solves' poses."""
+        vs = sorted(a.graph.vertices)
+        return (max(np.abs(a.vertex_estimate(v)[:3, 3] - b.vertex_estimate(v)[:3, 3]).max()
+                    for v in vs),
+                max(rotation_angle(a.vertex_estimate(v)[:3, :3], b.vertex_estimate(v)[:3, :3])
+                    for v in vs))
+
+    # seed 0: tests/test_torch_posegraph_cg.py's 600-vertex graph, gated;
+    # seed 3: a graph whose LM result moves by millimetres under rounding
+    # (the capped CG solves stop far from converged), printed beside the
+    # CPU's own move under a start nudged at fp32's rounding
+    for seed in (0, 3):
+        (card, t_card), (cpu, t_cpu) = solve(dev, seed), solve("cpu", seed)
+        dt, dr = apart(card, cpu)
+        print(f"  {CG_PARITY_V} vertices (seed {seed}), automatic solver {card.last_solver}: card "
+              f"{card.last_iters} LM iterations in {t_card:.3f} s, CPU {cpu.last_iters} in "
+              f"{t_cpu:.3f} s; CG iterations per step {card.last_cg_iters} (card), "
+              f"{cpu.last_cg_iters} (CPU); card against CPU: poses within {dt:.3g} m and "
+              f"{dr:.3g} rad", flush=True)
+        assert card.last_solver == cpu.last_solver == "cg"
+        if seed == 0:
+            assert card.last_iters == cpu.last_iters, (card.last_iters, cpu.last_iters)
+            assert dt <= CG_PARITY_TOL and dr <= CG_PARITY_TOL, (dt, dr)
+        else:
+            nt, nr = apart(solve("cpu", seed, nudge=True)[0], cpu)
+            print(f"  the CPU against itself from the nudged start: {nt:.3g} m and {nr:.3g} rad",
+                  flush=True)
+    return kernels.launch_counts()
+
+
+def scored_phase(kernels, dev, base: str, root: str, traj) -> dict:
+    """run_SLAM_imageonly 29 with scored loop closure and the finalize
+    pre-filter, one scored round's dispatch watched for host waits and
+    held to the host path's candidates, and the streamed run."""
+    from slam3d_gx_torch.cli import run_slam_imageonly, run_slam_streaming
+    from slam3d_gx_torch.parallel import registration
+
+    expect = {"equalize_hist256": False, "histogram256": False, "apply_lut256": False,
+              "min_eig_response": True}
+    out = {}
+    work = write_run_dir(base, "scored", root, detector_name="GFTT", descriptor_name="SIFT",
+                         loop_closure_scored=1, finalize_prefilter=8)
+    out[f"run_SLAM_imageonly {FRAMES - 1} scored"], ge, _ = run_path(
+        kernels, run_slam_imageonly.main, work, traj, FRAMES - 1, expect)
+    reg = ge.batch_registrar
+    loops = sum(e.robust for e in ge.opt.graph.edges)
+    print(f"  keyframes {len(ge.keyframes)} (database {ge.lcdb.count}, capacity "
+          f"{ge.lcdb.capacity}), scored rounds {reg.fused}, loop edges {loops}, pairs pruned by "
+          f"finalize_prefilter {ge._prefilter_pruned}", flush=True)
+    assert ge.lcdb.count == len(ge.keyframes) and reg.fused > 0
+
+    # one more scored round on the final state: its dispatch may not wait
+    q = ge.curr_kf.features
+    syncs = []
+    torch.cuda.synchronize()
+    with sync_sources(syncs):
+        idx, valid = ge.lcdb.select_candidates_device(q, ge.loopclosure_frames,
+                                                      n_det=ge._LC_N_DET)
+        packed = reg.dispatch_fused(ge.kf_store, idx, valid, q, ge._uniforms(idx.shape[0]),
+                                    ge.loop_closure_inliers)
+    rows = registration.fetch_all([packed])[0]
+    count = len(ge.keyframes)
+    host = ([count + i for i in (-3, -4) if count + i >= 0]
+            + ge.lcdb.top_candidates(q, ge.loopclosure_frames))
+    picked = [int(r[19]) for r in rows if r[20] != 0.0]
+    print(f"  a scored round of {rows.shape[0]} rows: synchronizing operations in its dispatch "
+          f"{len(syncs)} {syncs or ''}; candidates {picked}, the host path's {host}", flush=True)
+    assert not syncs, f"the dispatch of a scored round synchronized: {syncs}"
+    assert picked == host, (picked, host)
+
+    work = write_run_dir(base, "scored_stream", root, detector_name="GFTT", descriptor_name="SIFT",
+                         loop_closure_scored=1)
+    chunk = 8
+    out[f"run_SLAM_streaming {FRAMES - 1} {chunk} imageonly scored"], ge, _ = run_path(
+        kernels, run_slam_streaming.main, work, traj, FRAMES - 1, expect,
+        argv=[str(FRAMES - 1), str(chunk), "imageonly"])
+    print(f"  streamed: keyframes {len(ge.keyframes)}, scored rounds {ge.batch_registrar.fused}, "
+          f"loop edges {sum(e.robust for e in ge.opt.graph.edges)}", flush=True)
+    assert ge.lcdb.count == len(ge.keyframes) and ge.batch_registrar.fused > 0
+    return out
+
+
+def offline_phase(kernels, dev, base: str, root: str, traj, work_image: str, ge_image) -> dict:
+    """convert2pcd over the orbit's frames; generateTrajectory and
+    saveOutput over the image-only run's keyframe.txt and final graph,
+    saveOutput on the card against the CPU."""
+    from slam3d_gx_torch.cli import convert2pcd, generate_trajectory, save_output
+    from slam3d_gx_torch.config import ParameterReader
+    from slam3d_gx_torch.geometry import se3
+    from slam3d_gx_torch.io import pcd, tum
+    from slam3d_gx_torch.testing import synthetic
+    from slam3d_gx_torch.testing.clouds import cloud_agreement
+
+    cwd = os.getcwd()
+    work = os.path.join(base, "offline")
+    os.makedirs(work)
+    for d in ("rgb_index", "dep_index"):
+        os.symlink(os.path.join(root, d), os.path.join(work, d))
+    kernels.reset_counts()
+    try:
+        os.chdir(work)
+        t0 = time.perf_counter()
+        assert convert2pcd.main(["1", str(FRAMES + 1)]) == 0
+        t_convert = time.perf_counter() - t0
+        xyz, rgba = pcd.read_pcd(os.path.join(work, "pcd", "1.pcd"))
+        n_ref = convert2pcd.convert_one("rgb_index/1.png", "dep_index/1.png", "cpu_1.pcd",
+                                        device="cpu")
+        xyz_c, rgba_c = pcd.read_pcd("cpu_1.pcd")
+        os.chdir(work_image)
+        assert generate_trajectory.main(["data/keyframe.txt", "data/final_after.g2o"]) == 0
+        t0 = time.perf_counter()
+        assert save_output.main(["data/keyframe.txt", "data/final_after.g2o"]) == 0
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        assert save_output.fuse_map("data/keyframe.txt", "data/final_after.g2o",
+                                    out_path="result_cpu.pcd", device="cpu") == 0
+        t_cpu = time.perf_counter() - t0
+        leaf = ParameterReader("./parameters.yaml").get_float("grid_leaf")
+    finally:
+        os.chdir(cwd)
+    launches = kernels.launch_counts()
+    print(f"  convert2pcd 1 {FRAMES + 1}: {FRAMES} frames in {t_convert:.3f} s; frame 1 "
+          f"{len(xyz)} points, the CPU's {n_ref}", flush=True)
+    assert len(xyz) == n_ref and np.array_equal(rgba, rgba_c)
+    assert np.abs(xyz - xyz_c).max() <= 1e-6
+
+    rows = tum.read_trajectory(os.path.join(work_image, "trajectory.txt"))
+    kf = tum.read_keyframes(os.path.join(work_image, "data", "keyframe.txt"))
+    stamps = [float(line.split()[0]) for line in open(os.path.join(root, "associate.txt"))]
+    assert [ts for ts, _ in rows] == [stamps[f - 1] for _, f in kf]
+    ate_file = synthetic.ate_rmse([traj[f - 1] for _, f in kf],
+                                  [se3.set_estimate_data(d7) for _, d7 in rows])
+    ate_run = synthetic.ate_rmse([traj[k.frame_index - 1] for k in ge_image.keyframes],
+                                 [ge_image.opt.vertex_estimate(k.id) for k in ge_image.keyframes])
+    print(f"  generateTrajectory: {len(rows)} rows, ATE {ate_file:.9f} m, the run's "
+          f"{ate_run:.9f} m", flush=True)
+    assert abs(ate_file - ate_run) <= TRAJ_ATE_TOL, (ate_file, ate_run)
+
+    clouds = {}
+    for name in ("result.pcd", "result_cpu.pcd"):
+        xyz, rgba = pcd.read_pcd(os.path.join(work_image, name))
+        clouds[name] = (xyz, np.stack(pcd.unpack_rgba(rgba), -1))
+    (xa, ca), (xb, cb) = clouds["result.pcd"], clouds["result_cpu.pcd"]
+    share = min(cloud_agreement(xa, ca, xb, cb, leaf), cloud_agreement(xb, cb, xa, ca, leaf))
+    print(f"  saveOutput over {len(kf)} keyframes: {len(xa)} fused points on the card in "
+          f"{t_card:.3f} s, {len(xb)} on the CPU in {t_cpu:.3f} s; {share:.6f} of the points "
+          f"matched (bound {CLOUD_SHARE})", flush=True)
+    assert abs(len(xa) - len(xb)) <= CLOUD_COUNT_TOL * len(xb) and share >= CLOUD_SHARE
+    return launches
+
+
+def post_phase(kernels, dev, base: str, root: str, traj, work_image: str, ge_image) -> dict:
+    phase("the CG pose-graph solver on the card (make_loopy_graph, n_iters 15)")
+    post = {"CG": cg_phase(kernels, dev)}
+    phase(f"scored loop closure: run_SLAM_imageonly {FRAMES - 1} (GFTT) with loop_closure_scored 1 "
+          "and finalize_prefilter 8, and streamed")
+    post.update(scored_phase(kernels, dev, base, root, traj))
+    phase("offline CLIs: convert2pcd, generateTrajectory, saveOutput (card against CPU)")
+    post["offline CLIs"] = offline_phase(kernels, dev, base, root, traj, work_image, ge_image)
+    return post
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -1265,13 +1535,15 @@ def main(argv=()) -> int:
     if "--zoo" in argv:
         zoo_phase(kernels, dev, base, root, traj)
         return 0
+    post_only = "--post" in argv
 
-    phase("plane path: run_SLAM on a synthetic 640x480 orbit (SIFT)")
-    work_planes = write_run_dir(base, "planes", root)
-    launches, ge_planes, stats_planes = run_path(
-        kernels, run_slam.run, work_planes, traj, FRAMES - 1,
-        {"equalize_hist256": True, "histogram256": False, "apply_lut256": False,
-         "min_eig_response": False})
+    if not post_only:
+        phase("plane path: run_SLAM on a synthetic 640x480 orbit (SIFT)")
+        work_planes = write_run_dir(base, "planes", root)
+        launches, ge_planes, stats_planes = run_path(
+            kernels, run_slam.run, work_planes, traj, FRAMES - 1,
+            {"equalize_hist256": True, "histogram256": False, "apply_lut256": False,
+             "min_eig_response": False})
 
     phase("image-only path: run_SLAM_imageonly on the same orbit (GFTT)")
     work_image = write_run_dir(base, "image", root, detector_name="GFTT",
@@ -1282,6 +1554,9 @@ def main(argv=()) -> int:
          "min_eig_response": True})
     assert ge_image.image_only and ge_image.params.get_int("loop_closure_batched") == 1
     assert ge_image.batch_registrar.calls > 0, "the batched verifier was not used"
+    if post_only:
+        post_phase(kernels, dev, base, root, traj, work_image, ge_image)
+        return 0
     launches["min_eig_response"] = launches_image["min_eig_response"]
 
     phase("plane path with GFTT, a few frames: equalize_hist256 and K3 once per extraction")
@@ -1328,6 +1603,7 @@ def main(argv=()) -> int:
              min_keyframes=1)
 
     zoo = zoo_phase(kernels, dev, base, root, traj)
+    post = post_phase(kernels, dev, base, root, traj, work_image, ge_image)
 
     tpu = "slam3d_gx_tpu/ops/pallas_kernels.py"
     eq_cu = "slam3d_gx_torch/csrc/equalize.cu"
@@ -1350,6 +1626,7 @@ def main(argv=()) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "launches_zoo": {path: n[name] for path, n in zoo.items()},
+            "launches_post": {path: n[name] for path, n in post.items()},
         })
     missing = {f"{tpu}:{line}" for line in (24, 102, 144)} - covered
     assert not missing, f"no kernel launched on a path replaces {sorted(missing)}"

@@ -6,11 +6,21 @@ Levenberg + a robust kernel built by name, src/GraphicEnd.h:223-256) and
 SparseOptimizer::optimize (src/GraphicEnd.cpp:669-670). Edges are
 linearized as one batch (residual = se3_log(Zij^-1 Xi^-1 Xj), Jacobians
 by forward-mode autodiff of local right perturbations), robust weights
-applied per edge, and the damped normal equations solved densely as one
-(6V,6V) system. Each LM iteration assembles the system once and the loop
-stops early on a chi2 plateau, like g2o's terminate action. Fixed
-vertices get identity rows (gauge fixing; vertex 0 is fixed by the
-frontend).
+applied per edge, and the damped normal equations solved either
+
+- densely, as one (6V,6V) system, up to `_DENSE_VMAX` vertices; or
+- matrix-free, by block-Jacobi preconditioned conjugate gradients on the
+  per-edge 6x6 blocks (O(E) memory), above it: the reference's vertex
+  ids allow 10k frames (src/const.h:25), where a dense H would take
+  ~14 GB.
+
+Each LM iteration assembles the system once and reads back one pair of
+chi2 values; the loop stops early on a chi2 plateau, like g2o's
+terminate action. Fixed vertices get identity rows (gauge fixing; vertex
+0 is fixed by the frontend). The solver is picked by the vertex bucket
+of the JAX package (the next power of two >= 16), so both packages take
+the same solver and the same CG iteration cap for a graph; the port
+itself pads nothing.
 """
 
 from __future__ import annotations
@@ -30,9 +40,19 @@ from ..ops import lie
 _KERNEL_NONE, _KERNEL_CAUCHY, _KERNEL_HUBER = 0, 1, 2
 _KERNELS = {"cauchy": _KERNEL_CAUCHY, "huber": _KERNEL_HUBER}
 
-# largest graph solved densely; the matrix-free CG solver above it is
-# ROADMAP.md queue 1 item 11
+# largest vertex bucket solved densely; the CG solver runs above it
 _DENSE_VMAX = 512
+# CG iterations between two reads of its stop flag: the loop runs on
+# without waiting for the host, and a converged solve is frozen in place
+_CG_CHECK_EVERY = 32
+
+
+def _bucket(n: int, base: int = 16) -> int:
+    """The JAX package's vertex capacity of an n-vertex graph."""
+    c = base
+    while c < n:
+        c *= 2
+    return c
 
 
 def _edge_residual(Ti, Tj, Zinv):
@@ -83,9 +103,35 @@ def _edge_terms(poses, e_i, e_j, e_Zinv, e_info, e_robust, kernel: int,
     return chi_total, quad(Jii, Jii), quad(Jjj, Jjj), quad(Jii, Jjj), g_i, g_j
 
 
+def _lm_loop(system, solve, apply_delta, poses, n_iters: int, rel_tol: float = 1e-8):
+    """Shared LM loop: one system assembly per iteration (the candidate's
+    evaluation is the next iteration's system) and one readback, the
+    current and the candidate chi2, on which the host decides. Stops on
+    a chi2 plateau or a saturated damping factor; n_iters is a cap, as
+    the reference's optimize_step=200 is. Returns (poses, chi2, iters)."""
+    sys_cur = system(poses)
+    lam = 1e-4
+    it = 0
+    while it < n_iters:
+        cand = apply_delta(poses, solve(sys_cur, lam))
+        sys_new = system(cand)
+        # fp32 on the host, as the reference decides on the device
+        chi, chi_new = torch.stack([sys_cur[0], sys_new[0]]).cpu().numpy()
+        it += 1
+        if chi_new < chi:
+            poses, sys_cur = cand, sys_new
+            if (chi - chi_new) / max(chi, np.float32(1e-12)) < rel_tol:
+                break
+            lam = max(lam * 0.5, 1e-8)
+        else:
+            if lam >= 1e6:
+                break
+            lam = min(lam * 4.0, 1e6)
+    return poses, sys_cur[0], it
+
+
 def optimize_dense(poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
-                   n_iters: int, kernel: int, cauchy_delta: float = 1.0,
-                   rel_tol: float = 1e-8):
+                   n_iters: int, kernel: int, cauchy_delta: float = 1.0):
     """LM with a dense (6V,6V) solve. poses (V,4,4) -> (poses, chi2, iters)."""
     V = poses.shape[0]
     free = ~fixed
@@ -105,7 +151,8 @@ def optimize_dense(poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
         g.index_add_(0, e_j, g_j)
         return chi, H, g
 
-    def solve(H, g, lam):
+    def solve(sys_cur, lam):
+        _, H, g = sys_cur
         Hd = H.permute(0, 2, 1, 3).reshape(6 * V, 6 * V)
         Hd = torch.where(fmask[:, None] & fmask[None, :], Hd, 0.0)
         Hd[diag, diag] += torch.where(fmask, lam * (torch.diagonal(Hd) + 1e-6), 1.0)
@@ -115,25 +162,115 @@ def optimize_dense(poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
     def apply_delta(p, dx):
         return p @ lie.se3_exp(dx * free[:, None])
 
-    chi, H, g = system(poses)
-    lam = 1e-4
-    it = 0
-    while it < n_iters:
-        cand = apply_delta(poses, solve(H, g, lam))
-        chi_new, H_new, g_new = system(cand)
-        better = bool(chi_new < chi)
-        rel = float((chi - chi_new) / torch.clamp(chi, min=1e-12))
-        it += 1
-        if better:
-            poses, chi, H, g = cand, chi_new, H_new, g_new
-            if rel < rel_tol:
-                break
-            lam = max(lam * 0.5, 1e-8)
-        else:
-            if lam >= 1e6:
-                break
-            lam = min(lam * 4.0, 1e6)
-    return poses, chi, it
+    return _lm_loop(system, solve, apply_delta, poses, n_iters)
+
+
+def _pcg(matvec, precond, b, maxiter: int, tol: float = 1e-8):
+    """Preconditioned CG with jax.scipy.sparse.linalg.cg's recurrence and
+    stop rule: x0 = 0, r0 = b, p0 = z0 = M(r0), gamma = <r, z>; iterate
+    while <r, r> > tol^2 <b, b> and k < maxiter. The stop test stays on
+    the device: once it holds, x, r, p and gamma are frozen by
+    torch.where, which gives the result of stopping there, and the host
+    reads the flag only every _CG_CHECK_EVERY iterations. Returns
+    (x, iterations as a device tensor)."""
+
+    def dot(u, v):
+        return torch.sum(u * v)
+
+    atol2 = tol * tol * dot(b, b)
+    x = torch.zeros_like(b)
+    r = b
+    p = precond(r)
+    gamma = dot(r, p)
+    active = torch.ones((), dtype=torch.bool, device=b.device)
+    iters = torch.zeros((), dtype=torch.int32, device=b.device)
+    for k in range(maxiter):
+        active = active & (dot(r, r) > atol2)
+        Ap = matvec(p)
+        alpha = gamma / dot(p, Ap)
+        x_new = x + alpha * p
+        r_new = r - alpha * Ap
+        z = precond(r_new)
+        gamma_new = dot(r_new, z)
+        p_new = z + (gamma_new / gamma) * p
+        x = torch.where(active, x_new, x)
+        r = torch.where(active, r_new, r)
+        p = torch.where(active, p_new, p)
+        gamma = torch.where(active, gamma_new, gamma)
+        iters = iters + active.to(torch.int32)
+        if (k + 1) % _CG_CHECK_EVERY == 0 and not bool(active):
+            break
+    return x, iters
+
+
+def optimize_cg(poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
+                n_iters: int, kernel: int, maxiter: int, cauchy_delta: float = 1.0,
+                cg_iters: Optional[list] = None):
+    """LM with a matrix-free block-sparse CG solve: H stays as per-edge
+    6x6 blocks, applied edge by edge, so no (6V,6V) matrix is formed
+    (SURVEY.md section 2.2, g2o row "or via CG"). maxiter caps each CG
+    solve. With `cg_iters` a list, each LM step appends its CG
+    iterations (a device tensor) to it.
+    poses (V,4,4) -> (poses, chi2, iters)."""
+    V = poses.shape[0]
+    free = ~fixed
+    fcol = free[:, None]
+    e_ij = torch.cat([e_i, e_j])
+    eye6 = torch.eye(6, dtype=poses.dtype, device=poses.device)
+    # sums per vertex in one fixed order, on every device: a CUDA
+    # index_add_ adds in the order its atomics land, so each matvec would
+    # round differently and CG's recursive residual would stall above its
+    # tolerance where the CPU's reaches it
+    order = torch.argsort(e_ij, stable=True)
+    degree = torch.zeros(V, dtype=torch.int64, device=poses.device).index_add_(
+        0, e_ij, torch.ones_like(e_ij))
+
+    def scatter(vals):
+        """(2E, ...) rows, one per edge end -> (V, ...) sums per vertex."""
+        return torch.segment_reduce(vals[order], "sum", lengths=degree, unsafe=True,
+                                    initial=0.0)
+
+    def system(p):
+        chi, Bii, Bjj, Bij, g_i, g_j = _edge_terms(
+            p, e_i, e_j, e_Zinv, e_info, e_robust, kernel, cauchy_delta)
+        g = scatter(torch.cat([g_i, g_j]))
+        # each edge's (12,12) block [[Bii, Bij], [Bij^T, Bjj]] of H
+        B = torch.cat([torch.cat([Bii, Bij], -1),
+                       torch.cat([Bij.transpose(-1, -2), Bjj], -1)], -2)
+        # the 6x6 diagonal blocks of H, for the block-Jacobi preconditioner
+        Hb = scatter(torch.cat([Bii, Bjj]))
+        return chi, B, g, Hb
+
+    def solve(sys_cur, lam):
+        _, B, g, Hb = sys_cur
+        damp = lam * (torch.diagonal(Hb, dim1=-2, dim2=-1) + 1e-6)
+        # full 6x6 blocks, not scalar Jacobi: a chain's low-frequency
+        # modes crawl ~1 vertex a matvec under the scalar form. inv_ex:
+        # inv would check its info tensor, and the host would wait on it
+        Hb = Hb + torch.diag_embed(damp + 1e-6)
+        Minv = torch.linalg.inv_ex(torch.where(free[:, None, None], Hb, eye6))[0]
+        E = e_i.shape[0]
+
+        def matvec(x):
+            xm = x * fcol
+            xe = xm[e_ij].reshape(2, E, 6).permute(1, 0, 2).reshape(E, 12)
+            ye = (B @ xe[..., None])[..., 0]
+            y = scatter(ye.reshape(E, 2, 6).permute(1, 0, 2).reshape(2 * E, 6))
+            # identity on fixed coordinates (gauge fixing)
+            return torch.where(fcol, y + damp * xm, x)
+
+        def precond(x):
+            return torch.where(fcol, (Minv @ (x * fcol)[..., None])[..., 0], x)
+
+        dx, it = _pcg(matvec, precond, torch.where(fcol, -g, 0.0), maxiter)
+        if cg_iters is not None:
+            cg_iters.append(it)
+        return dx
+
+    def apply_delta(p, dx):
+        return p @ lie.se3_exp(dx * fcol)
+
+    return _lm_loop(system, solve, apply_delta, poses, n_iters)
 
 
 class PoseGraphOptimizer:
@@ -148,7 +285,11 @@ class PoseGraphOptimizer:
         self.graph = graph if graph is not None else g2o_io.Graph()
         self.robust_kernel = robust_kernel
         self.device = resolve_device(device)
-        self.last_iters = 0  # LM iterations of the last optimize()
+        # the last optimize(): its solver, LM iterations and the CG
+        # iterations of each LM step
+        self.last_solver = None
+        self.last_iters = 0
+        self.last_cg_iters = []
 
     # --- graph building (g2o SparseOptimizer surface analog) ----------
     def add_vertex(self, vid: int, T: np.ndarray, fixed: bool = False):
@@ -168,17 +309,23 @@ class PoseGraphOptimizer:
         self.graph = g2o_io.load_g2o(path)
 
     # --- optimization ---------------------------------------------------
-    def optimize(self, n_iters: int = 200) -> float:
-        """Run LM on the whole graph; returns the final robust chi2."""
+    def optimize(self, n_iters: int = 200, solver: Optional[str] = None) -> float:
+        """Run LM on the whole graph; returns the final robust chi2.
+
+        solver: "dense" | "cg" | None (dense up to a vertex bucket of
+        _DENSE_VMAX, CG above). The CG solve runs up to max(250, bucket/2)
+        iterations: information crosses O(1) vertices a matvec in a
+        chain-dominated graph, so the cap scales with the graph."""
         g = self.graph
         if not g.vertices or not g.edges:
             return 0.0
         ids = sorted(g.vertices)
-        if len(ids) > _DENSE_VMAX:
-            raise NotImplementedError(
-                f"{len(ids)} vertices: the CG pose-graph solver above "
-                f"{_DENSE_VMAX} vertices is not ported yet: ROADMAP.md queue 1 item 11")
         idx_of = {vid: k for k, vid in enumerate(ids)}
+        vcap = _bucket(len(ids))
+        if solver is None:
+            solver = "dense" if vcap <= _DENSE_VMAX else "cg"
+        if solver not in ("dense", "cg"):
+            raise ValueError(f"solver {solver!r}: expected 'dense', 'cg' or None")
         dev = self.device
 
         def t(a, dtype=torch.float32):
@@ -192,10 +339,19 @@ class PoseGraphOptimizer:
         e_info = t(np.stack([e.information for e in g.edges]))
         e_robust = t([e.robust for e in g.edges], torch.bool)
         kernel = _KERNELS.get(str(self.robust_kernel).strip().lower(), _KERNEL_NONE)
+        args = (poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust)
 
-        poses_out, final_chi, self.last_iters = optimize_dense(
-            poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
-            n_iters=n_iters, kernel=kernel)
+        self.last_solver = solver
+        if solver == "dense":
+            poses_out, final_chi, self.last_iters = optimize_dense(
+                *args, n_iters=n_iters, kernel=kernel)
+            self.last_cg_iters = []
+        else:
+            cg_iters = []
+            poses_out, final_chi, self.last_iters = optimize_cg(
+                *args, n_iters=n_iters, kernel=kernel, maxiter=max(250, vcap // 2),
+                cg_iters=cg_iters)
+            self.last_cg_iters = torch.stack(cg_iters).tolist()
         poses_out = poses_out.cpu().numpy().astype(np.float64)
         for k, vid in enumerate(ids):
             if not g.vertices[vid].fixed:

@@ -26,13 +26,26 @@ With 0 they verify candidates one at a time, the reference's sequential
 check. Random draws come from one `torch.Generator` on the device,
 seeded from the config key `seed`.
 
-One deliberate delta: when the last-frame rescue promotes the last
-frame, the reference registers it against the current keyframe again
-(src/GraphicEnd.cpp:183-227) and adds that result as the edge without
-checking it, so a failed second RANSAC adds an identity edge. The port
-reuses the registration that accepted the last frame against that same
-keyframe one frame earlier (the same inputs) and registers again only
-when there is none.
+With `loop_closure_scored: 1` a round's candidates are the keyframes
+that the retrieval database (parallel/lcdb.py) scores best against the
+new keyframe, in place of uniform draws; with the batched verifier the
+whole round (scores, top-k, gather, verification) is dispatched with no
+host wait and read back at the drain. `finalize_prefilter: N` ranks the
+history by the same score in findMoreLoops' scan and registers only the
+N best pairs of each source; the rest are cached as failed verdicts.
+
+Two deliberate deltas:
+- when the last-frame rescue promotes the last frame, the reference
+  registers it against the current keyframe again
+  (src/GraphicEnd.cpp:183-227) and adds that result as the edge without
+  checking it, so a failed second RANSAC adds an identity edge. The port
+  reuses the registration that accepted the last frame against that same
+  keyframe one frame earlier (the same inputs) and registers again only
+  when there is none;
+- `finalize_prefilter` alone leaves the loop-closure sampler uniform, as
+  the key's documentation says; the JAX package scores loop-closure
+  candidates whenever the database exists, so there the pre-filter also
+  switches the sampler. Only `loop_closure_scored` does that here.
 """
 
 from __future__ import annotations
@@ -50,9 +63,9 @@ from ..geometry import se3
 from ..io import images, pcd, tum
 from ..ops import plane_ransac, pointcloud
 from ..ops.features import registry as feat_registry
-from ..parallel import registration
+from ..parallel import lcdb, registration
 from . import pipeline
-from .state import FrameFeatures, Keyframe, result_to_host
+from .state import FrameFeatures, Keyframe, result_to_host, unpack_result_row
 
 INFO_VISUAL = np.diag([100.0] * 6)
 
@@ -60,10 +73,6 @@ INFO_VISUAL = np.diag([100.0] * 6)
 # each with the ROADMAP.md queue 1 item that ports it
 _UNPORTED = (
     ("mesh_devices", lambda v: int(float(v)) != 0, "item 18 (multi-device mesh)"),
-    ("loop_closure_scored", lambda v: int(float(v)) != 0,
-     "item 17 (scored loop closure, parallel/lcdb.py)"),
-    ("finalize_prefilter", lambda v: int(float(v)) != 0,
-     "item 17 (finalize pre-filter, parallel/lcdb.py)"),
 )
 
 
@@ -110,6 +119,8 @@ class GraphicEnd:
         self.frame_kp_budget = p.get_int("frame_kp_budget")
         self.align_cloud_scale = p.get_bool("align_cloud_scale")
         self.lc_max_drift = p.get_float("loop_closure_max_drift")
+        self.loop_closure_scored = p.get_int("loop_closure_scored") != 0
+        self.finalize_prefilter = p.get_int("finalize_prefilter")
 
         self.rgb_path, self.dep_path, self.pcl_path = tum.dataset_paths(
             p.GetPara("data_source"))
@@ -119,8 +130,13 @@ class GraphicEnd:
         self._gen.manual_seed(self.seed)
         self._build_pipeline()
         self.kf_store = None  # registration.FeatureStore: keyframe features on the device
-        # loop-closure rounds launched and not read back yet: (candidate
-        # indices, record flags, the round's keyframe, pending results)
+        # lcdb.KeyframeDatabase, built with the first keyframe when
+        # loop_closure_scored or finalize_prefilter is on
+        self.lcdb = None
+        # loop-closure rounds launched and not read back yet:
+        # ("explicit", candidate indices, record flags, the round's
+        # keyframe, pending results) or ("fused", the round's keyframe,
+        # its (B,21) packed rows)
         self._pending_lc = []
         # nothing in the frontend reads loop edges before lostRecovery or
         # the final save, so rounds wait and are read back in one copy
@@ -149,6 +165,7 @@ class GraphicEnd:
         # against that keyframe; None when `last` is itself the keyframe
         self._last_reg = None
         self.extractions = 0  # frames run through the extractor
+        self._prefilter_pruned = 0  # pairs finalize_prefilter left unregistered
 
     # -- construction ------------------------------------------------------
     def _build_pipeline(self):
@@ -196,6 +213,13 @@ class GraphicEnd:
             if self.kf_store is None:
                 self.kf_store = registration.FeatureStore(kf.features)
             self.kf_store.add(kf.features)
+        if self.lcdb is None and (self.loop_closure_scored or self.finalize_prefilter > 0):
+            p, k, d = kf.features.desc.shape
+            self.lcdb = lcdb.KeyframeDatabase(
+                n_desc=p * k, dim=d, device=self.device,
+                match_floor=feat_registry.match_floor(self.descriptor_name))
+        if self.lcdb is not None:
+            self.lcdb.add(kf.features)
 
     # -- io ------------------------------------------------------------------
     def _log(self, name: str, text: str, append: bool = True):
@@ -426,6 +450,10 @@ class GraphicEnd:
         return float(np.linalg.norm(expected[:3, 3] - Z[:3, 3])) <= self.lc_max_drift
 
     # -- loop closure -------------------------------------------------------
+    # a scored round's first rows: the deterministic -3/-4 checks
+    # (record=False, src/GraphicEnd.cpp:694-725)
+    _LC_N_DET = 2
+
     def _apply_loop_result(self, old_kf: Keyframe, new_kf: Keyframe, res,
                            record: bool) -> bool:
         """Gate one verified candidate (host tuple of a registration
@@ -459,12 +487,31 @@ class GraphicEnd:
         apply its edges and logs in launch order."""
         if not self._pending_lc:
             return
-        results = iter(registration.resolve_async(
-            [p for _, _, _, pending in self._pending_lc for p in pending]))
-        for cand, records, kf, _ in self._pending_lc:
-            for i, record in zip(cand, records):
-                if self._apply_loop_result(self.keyframes[i], kf, next(results), record) \
-                        and record:
+        parts = []
+        for ent in self._pending_lc:
+            if ent[0] == "fused":
+                parts.append(ent[2])
+            else:
+                parts.extend(packed[:n] for packed, n in ent[4])
+        fetched = iter(registration.fetch_all(parts))
+        for ent in self._pending_lc:
+            if ent[0] == "fused":
+                kf = ent[1]
+                for i, row in enumerate(next(fetched)):
+                    if row[20] == 0.0:  # an invalid candidate
+                        continue
+                    # the first _LC_N_DET rows are the deterministic checks
+                    record = i >= self._LC_N_DET
+                    ki = int(row[19])
+                    if self._apply_loop_result(self.keyframes[ki], kf,
+                                               unpack_result_row(row), record) and record:
+                        kf.connect.append(ki)
+                continue
+            _, cand, records, kf, pending = ent
+            rows = [r for _ in pending for r in next(fetched)]
+            for i, record, row in zip(cand, records, rows):
+                if self._apply_loop_result(self.keyframes[i], kf, unpack_result_row(row),
+                                           record) and record:
                     kf.connect.append(i)
         self._pending_lc = []
 
@@ -472,14 +519,27 @@ class GraphicEnd:
         if len(self.keyframes) <= 3:
             return
         # deterministic keyframes -3/-4 (src/GraphicEnd.cpp:694-725) +
-        # `loopclosure_frames` dedup'd uniform draws (729-761)
+        # `loopclosure_frames` dedup'd uniform draws (729-761), or the best
+        # scored keyframes with loop_closure_scored
+        if self.loop_closure_scored and self.batch_registrar is not None:
+            # the fused round: no host wait until the drain
+            idx, valid = self.lcdb.select_candidates_device(
+                self.curr_kf.features, self.loopclosure_frames, n_det=self._LC_N_DET)
+            packed = self.batch_registrar.dispatch_fused(
+                self.kf_store, idx, valid, self.curr_kf.features,
+                self._uniforms(idx.shape[0]), self.loop_closure_inliers)
+            self._pending_lc.append(("fused", self.keyframes[-1], packed))
+            return
         nearby = [len(self.keyframes) + i for i in (-3, -4)
                   if len(self.keyframes) + i >= 0]
         checked: List[int] = []
-        for _ in range(self.loopclosure_frames):
-            frame = self._rng.randrange(len(self.keyframes) - 3)
-            if frame not in checked:
-                checked.append(frame)
+        if self.loop_closure_scored:
+            checked = self.lcdb.top_candidates(self.curr_kf.features, self.loopclosure_frames)
+        else:
+            for _ in range(self.loopclosure_frames):
+                frame = self._rng.randrange(len(self.keyframes) - 3)
+                if frame not in checked:
+                    checked.append(frame)
 
         if self.batch_registrar is not None:
             # every candidate is judged on its own, so the round is one
@@ -492,7 +552,7 @@ class GraphicEnd:
             pending = self.batch_registrar.dispatch_against_one(
                 self.kf_store, cand, self.curr_kf.features,
                 self._uniforms(len(cand)), self.loop_closure_inliers)
-            self._pending_lc.append((cand, records, self.keyframes[-1], pending))
+            self._pending_lc.append(("explicit", cand, records, self.keyframes[-1], pending))
             return
 
         for n in nearby:
@@ -582,11 +642,24 @@ class GraphicEnd:
         one batched round: a walk stops at its first failure, but a
         verdict depends only on the pair, so the source is registered
         against the whole history on its first touch and all its walks
-        replay from the cache."""
+        replay from the cache.
+
+        With finalize_prefilter N > 0, the history is first ranked by the
+        retrieval score against the source and only the N best pairs are
+        registered; the rest are cached as failed verdicts, so a walk
+        stops there as at a failed registration."""
         fresh = [i for i in range(len(self.keyframes))
                  if i != source and (source, i) not in self._check_cache]
         if not fresh:
             return
+        limit = self.finalize_prefilter
+        if 0 < limit < len(fresh):
+            s = self.lcdb.scores(self.keyframes[source].features)
+            ranked = sorted(fresh, key=lambda i: -float(s[i]))  # stable: ties by index
+            for i in ranked[limit:]:
+                self._check_cache[(source, i)] = (False, np.eye(4))
+            self._prefilter_pruned += len(ranked) - limit
+            fresh = sorted(ranked[:limit])
         results = self.batch_registrar.run_against_one(
             self.kf_store, fresh, self.keyframes[source].features,
             self._uniforms(len(fresh)), self.loop_closure_inliers,

@@ -100,8 +100,11 @@ def inv_rodrigues(R: torch.Tensor) -> torch.Tensor:
 def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(...,3,3),(...,3) -> (...,4,4)."""
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # built from fills: assigning the 1.0 into a CUDA tensor under
+    # torch.func's transforms copies it from the host, and the host waits
+    lead = R.shape[:-2] + (1,)
+    bottom = torch.cat([torch.zeros(lead + (3,), dtype=R.dtype, device=R.device),
+                        torch.ones(lead + (1,), dtype=R.dtype, device=R.device)], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

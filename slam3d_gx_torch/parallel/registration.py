@@ -8,7 +8,10 @@ single-pair function of frontend/pipeline.py on features with a leading
 batch axis, every tensor operation once for the whole round.
 
 Used by the frontends' loopClosure, lostRecovery and findMoreLoops when
-`loop_closure_batched` is 1 (the default).
+`loop_closure_batched` is 1 (the default). With `loop_closure_scored` a
+loop-closure round is fused: the candidates that the keyframe database
+(parallel/lcdb.py) selects on the device are gathered from the feature
+store and verified without the host reading anything until the drain.
 
 Random draws are an argument, as everywhere in this package: the caller
 hands in `(B, P+2, H, 3)` uniforms for plane pairs and `(B, H, 3)` for
@@ -16,17 +19,17 @@ image pairs, one row a pair.
 
 Not carried from the reference module, as TPU or multi-device matter:
 the device mesh and its shardings (ROADMAP.md queue 1 item 18);
-`dispatch_fused` and `_pack_with_meta`, which serve the scored
-candidate database `parallel/lcdb.py` (item 17); `fetch_all`'s grouping
-of transfers by 8 (a tactic against a relay's latency; here a drain is
-one copy); the padding of every batch to a fixed 32 (a guard against
-recompiles; eager PyTorch has none, so a batch has its own length).
+`fetch_all`'s grouping of transfers by 8 (a tactic against a relay's
+latency; here a drain is one copy); the padding of every batch to a
+fixed 32 (a guard against recompiles; eager PyTorch has none, so a batch
+has its own length).
 """
 
 from __future__ import annotations
 
 from typing import Callable, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..config import CameraIntrinsics
@@ -66,14 +69,22 @@ def build_batched_multipnp(intr: CameraIntrinsics, image_only: bool = False,
     return batched
 
 
+def fetch_all(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """fp32 device tensors of any shapes -> host arrays, in one
+    device-to-host copy."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    ends = np.cumsum([t.numel() for t in tensors])
+    return [flat[e - t.numel():e].reshape(t.shape) for t, e in zip(tensors, ends)]
+
+
 def resolve_async(pending: Sequence[Pending]) -> List[tuple]:
     """Read back what `dispatch_against_one` launched: one device-to-host
     copy for all chunks, rows unpacked to (T, norm, inliers, ok) host
     tuples in launch order."""
-    if not pending:
-        return []
-    rows = torch.cat([packed[:n_valid] for packed, n_valid in pending]).cpu().numpy()
-    return [unpack_result_row(r) for r in rows]
+    rows = fetch_all([packed[:n_valid] for packed, n_valid in pending])
+    return [unpack_result_row(r) for part in rows for r in part]
 
 
 class FeatureStore:
@@ -109,6 +120,15 @@ class FeatureStore:
                               device=self._bufs.uv.device)
         return FrameFeatures(*(b[idx] for b in self._bufs))
 
+    def gather_dev(self, idx: torch.Tensor) -> FrameFeatures:
+        """Device indices (e.g. the scored round's candidates) -> (B, ...)
+        batch, with no host wait. Indices are clamped into the buffers: a
+        CUDA gather out of range would be a device-side assert, so rows
+        of invalid candidates come back as some stored row, which the
+        caller masks."""
+        idx = torch.clamp(idx, 0, self.capacity - 1)
+        return FrameFeatures(*(b[idx] for b in self._bufs))
+
     def broadcast(self, f: FrameFeatures, n: int) -> FrameFeatures:
         """One frame -> (n, ...) batch of views of it."""
         return FrameFeatures(*(x[None].expand((n,) + tuple(x.shape)) for x in f))
@@ -118,8 +138,8 @@ class BatchedRegistrar:
     """Verifies all candidates of a round in one batched call instead of
     the reference's sequential loop (src/GraphicEnd.cpp:729-761).
 
-    `calls` counts the batched calls launched and `pairs` the pairs they
-    held."""
+    `calls` counts the batched calls launched, `pairs` the pairs they
+    held and `fused` the scored rounds among them."""
 
     def __init__(self, intr: CameraIntrinsics, image_only: bool,
                  error_threshold: float = 1.0, match_floor: float = 0.0):
@@ -128,6 +148,7 @@ class BatchedRegistrar:
             match_floor=match_floor)
         self.calls = 0
         self.pairs = 0
+        self.fused = 0
 
     def _dispatch_stacked(self, fa: FrameFeatures, fb: FrameFeatures, u: torch.Tensor,
                           min_inliers: int, n_valid: int) -> Pending:
@@ -162,6 +183,21 @@ class BatchedRegistrar:
             pending.append(self._dispatch_stacked(
                 fa, fb, u[c0:c0 + len(part)], min_inliers, len(part)))
         return pending
+
+    def dispatch_fused(self, store: FeatureStore, idx: torch.Tensor, valid: torch.Tensor,
+                       single: FrameFeatures, u: torch.Tensor, min_inliers: int) -> torch.Tensor:
+        """A scored loop-closure round on the device: the candidates arrive
+        as device indices (lcdb.select_candidates_device), are gathered
+        from the store and verified against `single`, with no host wait.
+        u holds one row of uniforms per candidate. Returns one (B, 21)
+        device tensor: [:19] the packed result, [19] the candidate's
+        index, [20] its valid flag, for a deferred drain."""
+        b = idx.shape[0]
+        self.fused += 1
+        packed, _ = self._dispatch_stacked(store.gather_dev(idx), store.broadcast(single, b),
+                                           u, min_inliers, b)
+        return torch.cat([packed, idx.to(torch.float32)[:, None],
+                          valid.to(torch.float32)[:, None]], dim=1)
 
     def run_against_one(self, store: FeatureStore, indices: Sequence[int],
                         single: FrameFeatures, u: torch.Tensor, min_inliers: int,

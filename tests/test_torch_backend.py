@@ -83,13 +83,21 @@ def test_save_load_roundtrip(tmp_path):
 
 
 def test_empty_graph_and_cg_branch():
+    """An empty graph returns 0; 513 vertices take the CG solver (a
+    1,024 bucket: 512 CG iterations at most) and optimize: vertex 1 moves
+    onto its one edge's measurement."""
     assert TorchOptimizer(device="cpu").optimize() == 0.0
     big = TorchOptimizer(device="cpu")
     for i in range(tpg._DENSE_VMAX + 1):
         big.add_vertex(i, np.eye(4), fixed=i == 0)
-    big.add_edge(0, 1, np.eye(4), np.eye(6))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        big.optimize()
+    Z = se3.make_isometry(se3.rodrigues(np.array([0.0, 0.1, 0.0])), np.array([0.3, 0.0, 0.1]))
+    big.add_edge(0, 1, Z, np.eye(6))
+    chi = big.optimize(n_iters=10)
+    assert big.last_solver == "cg" and big.last_iters >= 1
+    assert 0 < max(big.last_cg_iters) <= 512
+    assert chi < 1e-8
+    np.testing.assert_allclose(big.vertex_estimate(1), Z, atol=1e-4)
+    np.testing.assert_allclose(big.vertex_estimate(2), np.eye(4), atol=1e-6)
 
 
 def test_slam_end_takes_the_configured_kernel():
