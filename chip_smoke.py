@@ -106,16 +106,27 @@ Phases, each of which must pass or the script exits non-zero:
    `generateTrajectory` and `saveOutput` over phase 6's keyframe.txt and
    final_after.g2o: the trajectory's ATE equal to the run's within 1e-6 m,
    the card's result.pcd against the CPU's (point counts within 0.1%,
-   99.9% of the points matched within 1e-4 m and colors within 1).
+   99.9% of the points matched within 1e-4 m and colors within 1);
+14. the mesh on the card: a one-rank NCCL group (file:// rendezvous in
+   the run's directory) and `make_mesh(1)`. `run_SLAM_imageonly 29` with
+   phase 13's scored parameters and `mesh_devices: 1`, against phase
+   13's unmeshed scored run: keyframes, lost frames and loop edges
+   equal, ATE within 1e-6 m, K3 launches equal, and no synchronizing
+   operation in one more scored round's dispatch; the 2,048-vertex CG
+   solve through `optimize_sharded` against the unsharded one (poses
+   within 1e-6 m), with the host waits and device operations of an LM
+   step both ways; the native I/O library (native_io.py, g++) built and
+   used by the runs' prefetch, the loaders' frames equal to the Python
+   readers', and the decode ms a frame both ways.
 
 Prints a `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`; each kernel's row also carries its
-launches on phase 12's paths ("launches_zoo") and on phase 13's
+launches on phase 12's paths ("launches_zoo") and on phases 13 and 14's
 ("launches_post"). Without a CUDA device it exits 2 and prints no result.
 
     python3 chip_smoke.py --kernels   # phases 1-4 only
     python3 chip_smoke.py --zoo       # phases 1-4 and 12 only
-    python3 chip_smoke.py --post      # phases 1-4, 6 and 13 only
+    python3 chip_smoke.py --post      # phases 1-4, 6, 13 and 14 only
     python3 chip_smoke.py --sweep     # phases 1-2, then equalize_hist256 in
                                       # clusters of 8 and 16 blocks against K1 + K2,
                                       # and K3 in every built (columns, rows) a
@@ -1345,28 +1356,19 @@ def cg_phase(kernels, dev) -> dict:
     return kernels.launch_counts()
 
 
-def scored_phase(kernels, dev, base: str, root: str, traj) -> dict:
-    """run_SLAM_imageonly 29 with scored loop closure and the finalize
-    pre-filter, one scored round's dispatch watched for host waits and
-    held to the host path's candidates, and the streamed run."""
-    from slam3d_gx_torch.cli import run_slam_imageonly, run_slam_streaming
+SCORED = dict(detector_name="GFTT", descriptor_name="SIFT", loop_closure_scored=1,
+              finalize_prefilter=8)
+IMAGE_ONLY_EXPECT = {"equalize_hist256": False, "histogram256": False, "apply_lut256": False,
+                     "min_eig_response": True}
+
+
+def scored_round_syncs(ge) -> tuple:
+    """One more scored round on a run's final state: the synchronizing
+    operations of its dispatch, the candidates it verified and the host
+    path's."""
     from slam3d_gx_torch.parallel import registration
 
-    expect = {"equalize_hist256": False, "histogram256": False, "apply_lut256": False,
-              "min_eig_response": True}
-    out = {}
-    work = write_run_dir(base, "scored", root, detector_name="GFTT", descriptor_name="SIFT",
-                         loop_closure_scored=1, finalize_prefilter=8)
-    out[f"run_SLAM_imageonly {FRAMES - 1} scored"], ge, _ = run_path(
-        kernels, run_slam_imageonly.main, work, traj, FRAMES - 1, expect)
     reg = ge.batch_registrar
-    loops = sum(e.robust for e in ge.opt.graph.edges)
-    print(f"  keyframes {len(ge.keyframes)} (database {ge.lcdb.count}, capacity "
-          f"{ge.lcdb.capacity}), scored rounds {reg.fused}, loop edges {loops}, pairs pruned by "
-          f"finalize_prefilter {ge._prefilter_pruned}", flush=True)
-    assert ge.lcdb.count == len(ge.keyframes) and reg.fused > 0
-
-    # one more scored round on the final state: its dispatch may not wait
     q = ge.curr_kf.features
     syncs = []
     torch.cuda.synchronize()
@@ -1379,9 +1381,42 @@ def scored_phase(kernels, dev, base: str, root: str, traj) -> dict:
     count = len(ge.keyframes)
     host = ([count + i for i in (-3, -4) if count + i >= 0]
             + ge.lcdb.top_candidates(q, ge.loopclosure_frames))
-    picked = [int(r[19]) for r in rows if r[20] != 0.0]
     print(f"  a scored round of {rows.shape[0]} rows: synchronizing operations in its dispatch "
-          f"{len(syncs)} {syncs or ''}; candidates {picked}, the host path's {host}", flush=True)
+          f"{len(syncs)} {syncs or ''}", flush=True)
+    return syncs, [int(r[19]) for r in rows if r[20] != 0.0], host
+
+
+def run_summary(ge, work: str) -> dict:
+    """What two runs of one configuration must share."""
+    log = os.path.join(work, "data", "error_of_transform.log")
+    return {"keyframes": [k.frame_index for k in ge.keyframes],
+            "lost": open(log).read().split().count("9999"),
+            "loop edges": [(e.id1, e.id2) for e in ge.opt.graph.edges if e.robust]}
+
+
+def scored_phase(kernels, dev, base: str, root: str, traj) -> tuple:
+    """run_SLAM_imageonly 29 with scored loop closure and the finalize
+    pre-filter, one scored round's dispatch watched for host waits and
+    held to the host path's candidates, and the streamed run. Returns the
+    launches of each run and the per-frame run (frontend, directory)."""
+    from slam3d_gx_torch.cli import run_slam_imageonly, run_slam_streaming
+
+    expect = IMAGE_ONLY_EXPECT
+    out = {}
+    work = write_run_dir(base, "scored", root, **SCORED)
+    out[f"run_SLAM_imageonly {FRAMES - 1} scored"], ge, _ = run_path(
+        kernels, run_slam_imageonly.main, work, traj, FRAMES - 1, expect)
+    scored_run = (ge, work)
+    reg = ge.batch_registrar
+    loops = sum(e.robust for e in ge.opt.graph.edges)
+    print(f"  keyframes {len(ge.keyframes)} (database {ge.lcdb.count}, capacity "
+          f"{ge.lcdb.capacity}), scored rounds {reg.fused}, loop edges {loops}, pairs pruned by "
+          f"finalize_prefilter {ge._prefilter_pruned}", flush=True)
+    assert ge.lcdb.count == len(ge.keyframes) and reg.fused > 0
+
+    # one more scored round on the final state: its dispatch may not wait
+    syncs, picked, host = scored_round_syncs(ge)
+    print(f"  candidates {picked}, the host path's {host}", flush=True)
     assert not syncs, f"the dispatch of a scored round synchronized: {syncs}"
     assert picked == host, (picked, host)
 
@@ -1394,7 +1429,7 @@ def scored_phase(kernels, dev, base: str, root: str, traj) -> dict:
     print(f"  streamed: keyframes {len(ge.keyframes)}, scored rounds {ge.batch_registrar.fused}, "
           f"loop edges {sum(e.robust for e in ge.opt.graph.edges)}", flush=True)
     assert ge.lcdb.count == len(ge.keyframes) and ge.batch_registrar.fused > 0
-    return out
+    return out, scored_run
 
 
 def offline_phase(kernels, dev, base: str, root: str, traj, work_image: str, ge_image) -> dict:
@@ -1466,14 +1501,165 @@ def offline_phase(kernels, dev, base: str, root: str, traj, work_image: str, ge_
     return launches
 
 
+# phase 14: the mesh on the card, as a one-rank NCCL group
+MESH_ATE_TOL = 1e-6  # m, the meshed run's ATE against the unmeshed one's
+MESH_CG_TOL = 1e-6   # m, the sharded CG solve's poses against the unsharded one's
+
+
+def mesh_cg(dev, mesh) -> None:
+    """The 2,048-vertex CG solve of phase 13 unsharded and through
+    optimize_sharded: poses, and the host waits and device operations
+    of an LM step both ways."""
+    import collections
+
+    from slam3d_gx_torch.parallel import optimize_sharded
+    from slam3d_gx_torch.testing import posegraph
+
+    n, seed = CG_CASES[0][:2]
+    solved = {}
+    for label, m in (("unsharded", None), ("optimize_sharded", mesh)):
+        opt, _, _ = posegraph.make_loopy_graph(n, seed=seed, device=dev)
+        start = {v: x.T.copy() for v, x in opt.graph.vertices.items()}
+
+        def solve(n_iters):
+            for v, T in start.items():
+                opt.graph.vertices[v].T = T.copy()
+            if m is None:
+                return opt.optimize(n_iters=n_iters, solver="cg")
+            return optimize_sharded(opt, m, n_iters=n_iters, solver="cg")
+
+        syncs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sync_sources(syncs):
+            chi = solve(15)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        solved[label] = {v: opt.vertex_estimate(v).copy() for v in opt.graph.vertices}
+        print(f"  {label}: chi2 {chi:.6g}, wall {wall:.3f} s, LM iterations {opt.last_iters}, "
+              f"CG iterations per LM step {opt.last_cg_iters}, host waits {len(syncs)} "
+              f"({len(syncs) / opt.last_iters:.2f} per LM step) from "
+              f"{dict(collections.Counter(syncs))}", flush=True)
+        profiled(f"{label} CG LM step at {n} vertices", lambda: solve(1), reps=2)
+    a, b = solved["unsharded"], solved["optimize_sharded"]
+    dt = max(np.abs(a[v][:3, 3] - b[v][:3, 3]).max() for v in a)
+    print(f"  optimize_sharded against unsharded: poses within {dt:.3g} m (bound {MESH_CG_TOL})",
+          flush=True)
+    assert dt <= MESH_CG_TOL, dt
+
+
+def native_io_phase(root: str, ges) -> None:
+    """The native library built here and used by the runs' prefetch; its
+    loaders' frames against the Python readers', and the decode ms a
+    frame both ways."""
+    from slam3d_gx_torch import native_io
+    from slam3d_gx_torch.io import images, pcd
+
+    t0 = time.perf_counter()
+    assert native_io.available(), f"native I/O library not built: {native_io.build_error}"
+    print(f"  {os.path.relpath(native_io.lib_path(), REPO)} loaded in "
+          f"{time.perf_counter() - t0:.3f} s (built by the first run that read a frame)",
+          flush=True)
+    for label, ge in ges.items():
+        print(f"  {label}: {ge.prefetched} frames from the native prefetch", flush=True)
+        assert ge.prefetched >= FRAMES - 2, (label, ge.prefetched)
+    idx = range(1, FRAMES + 1)
+    gray = [os.path.join(root, "rgb_index", f"{i}.png") for i in idx]
+    depth = [os.path.join(root, "dep_index", f"{i}.png") for i in idx]
+    clouds = [os.path.join(root, "pcd", f"{i}.pcd") for i in idx]
+    t0 = time.perf_counter()
+    loaders = [native_io.PrefetchLoader(gray, native_io.MODE_GRAY8, height=H, width=W),
+               native_io.PrefetchLoader(depth, native_io.MODE_DEPTH16, height=H, width=W),
+               native_io.PrefetchLoader(clouds, native_io.MODE_PCD)]
+    native = [tuple(ld.next() for ld in loaders) for _ in idx]
+    t_loader = time.perf_counter() - t0
+    for ld in loaders:
+        ld.close()
+    t0 = time.perf_counter()
+    for g, d in zip(gray, depth):
+        native_io.png_decode(g)
+        native_io.png_decode(d, to_gray=False)
+    t_decode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = [(images.read_gray_pil(g), images.read_depth_pil(d), pcd.read_pcd(c))
+              for g, d, c in zip(gray, depth, clouds)]
+    t_python = time.perf_counter() - t0
+    for (g, d, (x, c)), (gp, dp, (xp, cp)) in zip(native, python):
+        assert np.array_equal(g, gp) and np.array_equal(d, dp), "native PNG decode differs"
+        assert np.array_equal(x, xp) and np.array_equal(c, cp), "native PCD read differs"
+    ms = 1e3 / FRAMES
+    print(f"  {FRAMES} frames (gray, depth, cloud) equal to the Python readers'; per frame: "
+          f"prefetch loaders {t_loader * ms:.3f} ms, native png_decode of gray and depth in "
+          f"this thread {t_decode * ms:.3f} ms, Python (PIL and numpy) {t_python * ms:.3f} ms",
+          flush=True)
+
+
+def mesh_phase(kernels, dev, base: str, root: str, traj, scored_run, scored_launches: dict,
+               ge_image) -> dict:
+    import torch.distributed as dist
+
+    from slam3d_gx_torch.cli import run_slam_imageonly
+    from slam3d_gx_torch.parallel import mesh as mesh_mod
+
+    print(card_line(), flush=True)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(base, 'rendezvous')}",
+                            world_size=1, rank=0)
+    try:
+        mesh = mesh_mod.make_mesh(1)
+        print(f"  mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, backend "
+              f"{dist.get_backend()}", flush=True)
+        ge13, work13 = scored_run
+        work = write_run_dir(base, "mesh_scored", root, mesh_devices=1, **SCORED)
+        out = {}
+        label = f"run_SLAM_imageonly {FRAMES - 1} scored, mesh_devices 1"
+        out[label], ge, _ = run_path(kernels, run_slam_imageonly.main, work, traj,
+                                     FRAMES - 1, IMAGE_ONLY_EXPECT)
+        assert ge.mesh is not None and ge.batch_registrar.mesh is ge.mesh
+        assert ge.lcdb.mesh is ge.mesh
+        got, want = run_summary(ge, work), run_summary(ge13, work13)
+        ates = [synthetic_ate(g, traj) for g in (ge, ge13)]
+        k3 = [out[label]["min_eig_response"],
+              scored_launches[f"run_SLAM_imageonly {FRAMES - 1} scored"]["min_eig_response"]]
+        print(f"  meshed against phase 13's unmeshed run: keyframes {len(got['keyframes'])} and "
+              f"{len(want['keyframes'])}, lost frames {got['lost']} and {want['lost']}, loop "
+              f"edges {len(got['loop edges'])} and {len(want['loop edges'])}, ATE {ates[0]:.9f} "
+              f"and {ates[1]:.9f} m, K3 launches {k3[0]} and {k3[1]}", flush=True)
+        assert got == want, (got, want)
+        assert abs(ates[0] - ates[1]) <= MESH_ATE_TOL, ates
+        assert k3[0] == k3[1], k3
+        syncs, picked, host = scored_round_syncs(ge)
+        assert not syncs, f"the dispatch of a scored round under the mesh synchronized: {syncs}"
+        assert picked == host, (picked, host)
+
+        kernels.reset_counts()
+        mesh_cg(dev, mesh)
+        out["CG under the mesh"] = kernels.launch_counts()
+        native_io_phase(root, {"phase 6 run_SLAM_imageonly": ge_image,
+                               "phase 13 scored run": ge13, "phase 14 meshed run": ge})
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def synthetic_ate(ge, traj) -> float:
+    from slam3d_gx_torch.testing import synthetic
+
+    return synthetic.ate_rmse([traj[k.frame_index - 1] for k in ge.keyframes],
+                              [ge.opt.vertex_estimate(k.id) for k in ge.keyframes])
+
+
 def post_phase(kernels, dev, base: str, root: str, traj, work_image: str, ge_image) -> dict:
     phase("the CG pose-graph solver on the card (make_loopy_graph, n_iters 15)")
     post = {"CG": cg_phase(kernels, dev)}
     phase(f"scored loop closure: run_SLAM_imageonly {FRAMES - 1} (GFTT) with loop_closure_scored 1 "
           "and finalize_prefilter 8, and streamed")
-    post.update(scored_phase(kernels, dev, base, root, traj))
+    launches, scored_run = scored_phase(kernels, dev, base, root, traj)
+    post.update(launches)
     phase("offline CLIs: convert2pcd, generateTrajectory, saveOutput (card against CPU)")
     post["offline CLIs"] = offline_phase(kernels, dev, base, root, traj, work_image, ge_image)
+    phase("the mesh on the card: a one-rank NCCL group, mesh_devices 1, optimize_sharded, "
+          "native I/O")
+    post.update(mesh_phase(kernels, dev, base, root, traj, scored_run, launches, ge_image))
     return post
 
 

@@ -1,6 +1,6 @@
 """slam3d_gx_torch — the RGB-D plane SLAM of slam3d_gx_tpu on PyTorch and CUDA.
 
-A port of the JAX package for one NVIDIA H100. Module paths mirror
+A port of the JAX package for NVIDIA H100 cards. Module paths mirror
 `slam3d_gx_tpu/` so each function has an obvious counterpart; the JAX
 package stays the reference that the tests hold this one to.
 
@@ -10,7 +10,10 @@ package stays the reference that the tests hold this one to.
   Hopper (`kernels/`, sources in `csrc/`), each beside a plain PyTorch
   version that runs only for tensors on the CPU;
 - entry points run on `cuda` unless the caller passes `device="cpu"`
-  (`device.resolve_device`).
+  (`device.resolve_device`);
+- several cards run as one process a card in a `torch.distributed`
+  group (`torchrun`), laid out as the JAX package's (dp, sp) mesh
+  (`parallel/mesh.py`, config key `mesh_devices`).
 """
 
 import torch

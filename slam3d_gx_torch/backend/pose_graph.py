@@ -14,6 +14,15 @@ applied per edge, and the damped normal equations solved either
   ids allow 10k frames (src/const.h:25), where a dense H would take
   ~14 GB.
 
+With a mesh (`optimize(mesh=...)`, parallel/mesh.py) the edges are
+padded to a multiple of the mesh's dp axis with edges of zero
+information, which add nothing, and each dp rank linearizes its block of
+them. The dense solve all-reduces the partial H, g and chi2 over the dp
+group, once per system, and every rank runs the same solve. The CG solve
+all-reduces g, the block-Jacobi blocks and chi2 once per system and each
+matvec's sums per vertex in every CG iteration; every rank then holds
+the same values, reads the same stop flag and makes the same LM choice.
+
 Each LM iteration assembles the system once and reads back one pair of
 chi2 values; the loop stops early on a chi2 plateau, like g2o's
 terminate action. Fixed vertices get identity rows (gauge fixing; vertex
@@ -25,7 +34,7 @@ itself pads nothing.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -34,6 +43,7 @@ from ..device import resolve_device
 from ..geometry import se3 as se3_np
 from ..io import g2o_io
 from ..ops import lie
+from ..parallel import mesh as mesh_mod
 
 # robust-kernel codes; an unknown name constructs no kernel, as g2o's
 # factory does (src/GraphicEnd.h:245)
@@ -103,6 +113,15 @@ def _edge_terms(poses, e_i, e_j, e_Zinv, e_info, e_robust, kernel: int,
     return chi_total, quad(Jii, Jii), quad(Jjj, Jjj), quad(Jii, Jjj), g_i, g_j
 
 
+def _summed(reduce: Optional[Callable], *parts):
+    """`parts` summed over the ranks by `reduce` (in place, one
+    collective for all of them); as they are without it."""
+    if reduce is None:
+        return parts
+    flat = reduce(torch.cat([p.reshape(-1) for p in parts]))
+    return tuple(c.view_as(p) for c, p in zip(flat.split([p.numel() for p in parts]), parts))
+
+
 def _lm_loop(system, solve, apply_delta, poses, n_iters: int, rel_tol: float = 1e-8):
     """Shared LM loop: one system assembly per iteration (the candidate's
     evaluation is the next iteration's system) and one readback, the
@@ -131,8 +150,11 @@ def _lm_loop(system, solve, apply_delta, poses, n_iters: int, rel_tol: float = 1
 
 
 def optimize_dense(poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
-                   n_iters: int, kernel: int, cauchy_delta: float = 1.0):
-    """LM with a dense (6V,6V) solve. poses (V,4,4) -> (poses, chi2, iters)."""
+                   n_iters: int, kernel: int, cauchy_delta: float = 1.0,
+                   reduce: Optional[Callable] = None):
+    """LM with a dense (6V,6V) solve. poses (V,4,4) -> (poses, chi2, iters).
+    `reduce` sums a tensor over the ranks that hold the other edges, in
+    place (see the module docstring)."""
     V = poses.shape[0]
     free = ~fixed
     fmask = free.repeat_interleave(6)
@@ -149,7 +171,7 @@ def optimize_dense(poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
         g = torch.zeros((V, 6), dtype=p.dtype, device=p.device)
         g.index_add_(0, e_i, g_i)
         g.index_add_(0, e_j, g_j)
-        return chi, H, g
+        return _summed(reduce, chi, H, g)
 
     def solve(sys_cur, lam):
         _, H, g = sys_cur
@@ -205,12 +227,12 @@ def _pcg(matvec, precond, b, maxiter: int, tol: float = 1e-8):
 
 def optimize_cg(poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
                 n_iters: int, kernel: int, maxiter: int, cauchy_delta: float = 1.0,
-                cg_iters: Optional[list] = None):
+                cg_iters: Optional[list] = None, reduce: Optional[Callable] = None):
     """LM with a matrix-free block-sparse CG solve: H stays as per-edge
     6x6 blocks, applied edge by edge, so no (6V,6V) matrix is formed
     (SURVEY.md section 2.2, g2o row "or via CG"). maxiter caps each CG
     solve. With `cg_iters` a list, each LM step appends its CG
-    iterations (a device tensor) to it.
+    iterations (a device tensor) to it. `reduce` as in optimize_dense.
     poses (V,4,4) -> (poses, chi2, iters)."""
     V = poses.shape[0]
     free = ~fixed
@@ -239,6 +261,7 @@ def optimize_cg(poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
                        torch.cat([Bij.transpose(-1, -2), Bjj], -1)], -2)
         # the 6x6 diagonal blocks of H, for the block-Jacobi preconditioner
         Hb = scatter(torch.cat([Bii, Bjj]))
+        chi, g, Hb = _summed(reduce, chi, g, Hb)
         return chi, B, g, Hb
 
     def solve(sys_cur, lam):
@@ -256,6 +279,8 @@ def optimize_cg(poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
             xe = xm[e_ij].reshape(2, E, 6).permute(1, 0, 2).reshape(E, 12)
             ye = (B @ xe[..., None])[..., 0]
             y = scatter(ye.reshape(E, 2, 6).permute(1, 0, 2).reshape(2 * E, 6))
+            if reduce is not None:
+                y = reduce(y)
             # identity on fixed coordinates (gauge fixing)
             return torch.where(fcol, y + damp * xm, x)
 
@@ -271,6 +296,27 @@ def optimize_cg(poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust,
         return p @ lie.se3_exp(dx * fcol)
 
     return _lm_loop(system, solve, apply_delta, poses, n_iters)
+
+
+def _edge_shard(edges, mesh):
+    """This dp rank's block of the edge arrays (e_i, e_j, e_Zinv, e_info,
+    e_robust), padded to a multiple of dp with edges of zero information
+    (vertex 0 to itself, not robust): chi2, blocks and gradient all zero."""
+    e_i, e_j, e_Zinv, e_info, e_robust = edges
+    E = e_i.shape[0]
+    E_pad = mesh_mod.pad_to_multiple(E, mesh_mod.axis_size(mesh, mesh_mod.DP_AXIS))
+    if E_pad != E:
+        pad = E_pad - E
+
+        def ext(x, fill):
+            return torch.cat([x, fill.expand((pad,) + tuple(x.shape[1:]))])
+
+        eye = torch.eye(4, dtype=e_Zinv.dtype, device=e_Zinv.device)
+        e_i, e_j = ext(e_i, e_i.new_zeros(())), ext(e_j, e_j.new_zeros(()))
+        e_Zinv, e_info = ext(e_Zinv, eye), ext(e_info, e_info.new_zeros((6, 6)))
+        e_robust = ext(e_robust, e_robust.new_zeros(()))
+    return tuple(mesh_mod.shard_rows(x, mesh, mesh_mod.DP_AXIS)
+                 for x in (e_i, e_j, e_Zinv, e_info, e_robust))
 
 
 class PoseGraphOptimizer:
@@ -309,13 +355,17 @@ class PoseGraphOptimizer:
         self.graph = g2o_io.load_g2o(path)
 
     # --- optimization ---------------------------------------------------
-    def optimize(self, n_iters: int = 200, solver: Optional[str] = None) -> float:
+    def optimize(self, n_iters: int = 200, solver: Optional[str] = None,
+                 mesh=None) -> float:
         """Run LM on the whole graph; returns the final robust chi2.
 
         solver: "dense" | "cg" | None (dense up to a vertex bucket of
         _DENSE_VMAX, CG above). The CG solve runs up to max(250, bucket/2)
         iterations: information crosses O(1) vertices a matvec in a
-        chain-dominated graph, so the cap scales with the graph."""
+        chain-dominated graph, so the cap scales with the graph. With
+        `mesh`, the edges are split over its dp axis (see the module
+        docstring); every rank of the mesh must call this on the same
+        graph."""
         g = self.graph
         if not g.vertices or not g.edges:
             return 0.0
@@ -339,18 +389,26 @@ class PoseGraphOptimizer:
         e_info = t(np.stack([e.information for e in g.edges]))
         e_robust = t([e.robust for e in g.edges], torch.bool)
         kernel = _KERNELS.get(str(self.robust_kernel).strip().lower(), _KERNEL_NONE)
-        args = (poses, fixed, e_i, e_j, e_Zinv, e_info, e_robust)
+        edges = (e_i, e_j, e_Zinv, e_info, e_robust)
+        reduce = None
+        if mesh is not None:
+            edges = _edge_shard(edges, mesh)
+
+            def reduce(x):
+                return mesh_mod.all_reduce_sum(x, mesh, mesh_mod.DP_AXIS)
+
+        args = (poses, fixed, *edges)
 
         self.last_solver = solver
         if solver == "dense":
             poses_out, final_chi, self.last_iters = optimize_dense(
-                *args, n_iters=n_iters, kernel=kernel)
+                *args, n_iters=n_iters, kernel=kernel, reduce=reduce)
             self.last_cg_iters = []
         else:
             cg_iters = []
             poses_out, final_chi, self.last_iters = optimize_cg(
                 *args, n_iters=n_iters, kernel=kernel, maxiter=max(250, vcap // 2),
-                cg_iters=cg_iters)
+                cg_iters=cg_iters, reduce=reduce)
             self.last_cg_iters = torch.stack(cg_iters).tolist()
         poses_out = poses_out.cpu().numpy().astype(np.float64)
         for k, vid in enumerate(ids):

@@ -9,6 +9,9 @@ image-only pipeline. Reads ./parameters.yaml; runs on the CUDA device,
 `main(..., device="cpu")` on the CPU.
 
     python -m slam3d_gx_torch.cli.run_slam_streaming 29 8 planes
+
+On N cards with `mesh_devices: N`, as run_slam:
+`torchrun --nproc-per-node N -m slam3d_gx_torch.cli.run_slam_streaming ...`.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from ..backend import SLAMEnd
 from ..config import ParameterReader
 from ..frontend.streaming import StreamingGraphicEnd, StreamingGraphicEnd2
+from ..parallel import mesh as mesh_mod
 
 
 def main(argv=None, device=None, stats=None) -> int:
@@ -37,6 +41,7 @@ def main(argv=None, device=None, stats=None) -> int:
     if kind not in ("planes", "imageonly"):
         raise ValueError(f"pipeline: {kind!r} (planes or imageonly)")
 
+    mesh_mod.init_from_env(device)
     params = ParameterReader("./parameters.yaml")
     cls = StreamingGraphicEnd if kind == "planes" else StreamingGraphicEnd2
     ge = cls(params, chunk=chunk, device=device)
@@ -51,12 +56,14 @@ def main(argv=None, device=None, stats=None) -> int:
     if ge.device.type == "cuda":
         torch.cuda.synchronize(ge.device)
     seconds = time.perf_counter() - t0
-    print(f"processed {done} frames in chunks of {chunk}")
+    say = print if ge.writes else (lambda *a: None)
+    say(f"processed {done} frames in chunks of {chunk}")
 
-    print(f"keyframes: {len(ge.keyframes)}")
-    os.makedirs("./data", exist_ok=True)
+    say(f"keyframes: {len(ge.keyframes)}")
     ge.drain_pending_loop_closures()
-    slam.globalOptimizer.save("./data/final.g2o")
+    if ge.writes:
+        os.makedirs("./data", exist_ok=True)
+        slam.globalOptimizer.save("./data/final.g2o")
     ge.save_final_result("./data/result.pcd")
     if stats is not None:
         stats.update(graphic_end=ge, frames=done, seconds=seconds, chunk_syncs=ge.sync_log)

@@ -151,12 +151,14 @@ DEFAULTS: Dict[str, str] = {
     # this scale is centimeters. Leave off when expected odometry drift
     # between revisits approaches the gate.
     "loop_closure_max_drift": "0",
-    # multi-chip: 0 (default) = single device, no mesh; N>1 = build a
-    # (dp, sp) mesh over the first N jax devices (parallel/mesh.py) and
-    # run the deployed application sharded — loop-closure/recovery
-    # candidate verification fans out over dp, the scored keyframe
-    # database shards over sp, and the finalize pose-graph solve shards
-    # its edge set over dp; -1 = all visible devices. The reference
+    # multi-device: 0 (default) = one device, no mesh; N = a (dp, sp)
+    # mesh over the N ranks of the process group, one process a card
+    # (torchrun --nproc-per-node N; parallel/mesh.py; 1 without a group
+    # starts a one-rank group), and the application runs sharded —
+    # loop-closure/recovery candidate verification fans out over dp, the
+    # scored keyframe database shards over sp, and the finalize
+    # pose-graph solve shards its edge set over dp; -1 = every rank of
+    # the group (no mesh with one rank or no group). The reference
     # workloads these shard: the 30-candidate loop round
     # (src/GraphicEnd.cpp:729-761), the O(K) recovery scan (:810-836),
     # and optimize(200) (:669-670).

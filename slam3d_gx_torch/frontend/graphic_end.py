@@ -34,6 +34,16 @@ host wait and read back at the drain. `finalize_prefilter: N` ranks the
 history by the same score in findMoreLoops' scan and registers only the
 N best pairs of each source; the rest are cached as failed verdicts.
 
+`mesh_devices: N` runs the frontend on the N ranks of a process group
+(one process a card: `torchrun --nproc-per-node N`), with a (dp, sp)
+mesh (parallel/mesh.py) that the batched verifier, the retrieval
+database and the final pose-graph solve split their work over. Every
+rank runs this state machine with the same seed and reaches the same
+decisions; only rank 0 writes the logs and the final files.
+
+With the native library (native_io.py) built, frames after the first
+are decoded ahead by its threaded loaders while the device works.
+
 Two deliberate deltas:
 - when the last-frame rescue promotes the last frame, the reference
   registers it against the current keyframe again
@@ -56,24 +66,20 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from PIL import Image
 
+from .. import native_io
 from ..config import ParameterReader
 from ..device import resolve_device
 from ..geometry import se3
 from ..io import images, pcd, tum
 from ..ops import plane_ransac, pointcloud
 from ..ops.features import registry as feat_registry
-from ..parallel import lcdb, registration
+from ..parallel import lcdb, mesh as mesh_mod, registration
 from . import pipeline
 from .state import FrameFeatures, Keyframe, result_to_host, unpack_result_row
 
 INFO_VISUAL = np.diag([100.0] * 6)
-
-# config values that select code paths this package does not carry yet,
-# each with the ROADMAP.md queue 1 item that ports it
-_UNPORTED = (
-    ("mesh_devices", lambda v: int(float(v)) != 0, "item 18 (multi-device mesh)"),
-)
 
 
 class GraphicEnd:
@@ -85,11 +91,10 @@ class GraphicEnd:
                  data_dir: str = "./data", device=None):
         self.params = params if params is not None else ParameterReader("./parameters.yaml")
         p = self.params
-        for key, unported, item in _UNPORTED:
-            if unported(p.GetPara(key)):
-                raise NotImplementedError(
-                    f"{key}: {p.GetPara(key)} is not ported yet: ROADMAP.md queue 1 {item}")
         self.device = resolve_device(device)
+        self.mesh = self._make_mesh(p.get_int("mesh_devices"))
+        # the rank that writes the logs and the final files
+        self.writes = mesh_mod.is_main_rank()
         self.data_dir = data_dir
         self.intr = p.intrinsics
 
@@ -166,8 +171,23 @@ class GraphicEnd:
         self._last_reg = None
         self.extractions = 0  # frames run through the extractor
         self._prefilter_pruned = 0  # pairs finalize_prefilter left unregistered
+        self._prefetch = None  # native_io loaders of the frames ahead
+        self.prefetched = 0  # frames read from them
 
     # -- construction ------------------------------------------------------
+    def _make_mesh(self, n: int):
+        """`mesh_devices`: 0 no mesh; N the (dp, sp) mesh over the N ranks
+        of the process group, which must have N ranks (1 without a group
+        starts a one-rank group); -1 all ranks of the group, and no mesh
+        when there is one rank or no group."""
+        if n == 0:
+            return None
+        if n == -1:
+            n = mesh_mod.world_size()
+            if n == 1:
+                return None
+        return mesh_mod.make_mesh(n, device=self.device)
+
     def _build_pipeline(self):
         self.extract = pipeline.build_plane_extractor(
             self.detector_name, self.descriptor_name, self.intr,
@@ -196,7 +216,7 @@ class GraphicEnd:
         return registration.BatchedRegistrar(
             self.intr, image_only=self.image_only,
             error_threshold=self.error_threshold,
-            match_floor=feat_registry.match_floor(self.descriptor_name))
+            match_floor=feat_registry.match_floor(self.descriptor_name), mesh=self.mesh)
 
     def _uniforms(self, *batch: int) -> torch.Tensor:
         """Fresh PnP draws from the run's generator, for one
@@ -216,21 +236,80 @@ class GraphicEnd:
         if self.lcdb is None and (self.loop_closure_scored or self.finalize_prefilter > 0):
             p, k, d = kf.features.desc.shape
             self.lcdb = lcdb.KeyframeDatabase(
-                n_desc=p * k, dim=d, device=self.device,
+                n_desc=p * k, dim=d, device=self.device, mesh=self.mesh,
                 match_floor=feat_registry.match_floor(self.descriptor_name))
         if self.lcdb is not None:
             self.lcdb.add(kf.features)
 
+    # -- prefetch ------------------------------------------------------------
+    def _setup_prefetch(self, want_pcd: bool, queue_depth: int = 4, threads: int = 2):
+        """Start the native threaded loaders on every frame after the
+        current one, so that decoding overlaps the device's work (the
+        reference decodes each frame when it reads it,
+        src/GraphicEnd.cpp:266-302). Without the native library readimage
+        decodes in Python."""
+        self._prefetch = None
+        if not native_io.available():
+            return
+        last = self.index
+        while os.path.exists(os.path.join(self.rgb_path, f"{last + 1}.png")):
+            last += 1
+        if last <= self.index:
+            return
+        # the loaders' frame size: the first frame they read (one of
+        # another size comes back as a failed item, read synchronously)
+        with Image.open(os.path.join(self.rgb_path, f"{self.index + 1}.png")) as first:
+            w, h = first.size
+        idx = range(self.index + 1, last + 1)
+
+        def loader(path, ext, mode, **kw):
+            return native_io.PrefetchLoader([os.path.join(path, f"{i}.{ext}") for i in idx],
+                                            mode, queue_depth=queue_depth, threads=threads, **kw)
+
+        self._prefetch = {
+            "gray": loader(self.rgb_path, "png", native_io.MODE_GRAY8, height=h, width=w),
+            "depth": loader(self.dep_path, "png", native_io.MODE_DEPTH16, height=h, width=w)}
+        if want_pcd:
+            self._prefetch["pcd"] = loader(self.pcl_path, "pcd", native_io.MODE_PCD)
+        self._prefetch_next = self.index + 1
+
+    def _prefetch_pop(self):
+        """(gray, depth, (xyz, rgba) or None) of this frame from the
+        loaders, when they are at this frame; None sends the caller to
+        the synchronous read."""
+        if self._prefetch is None or self._prefetch_next != self.index:
+            return None
+        try:
+            got = [self._prefetch[k].next() if k in self._prefetch else None
+                   for k in ("gray", "depth", "pcd")]
+        except StopIteration:
+            self._prefetch = None
+            return None
+        self._prefetch_next += 1
+        if got[0] is None or got[1] is None:
+            return None
+        self.prefetched += 1
+        return tuple(got)
+
     # -- io ------------------------------------------------------------------
     def _log(self, name: str, text: str, append: bool = True):
+        if not self.writes:
+            return
         os.makedirs(self.data_dir, exist_ok=True)
         with open(os.path.join(self.data_dir, name), "a" if append else "w") as f:
             f.write(text)
 
     def readimage(self):
-        gray = images.load_gray(os.path.join(self.rgb_path, f"{self.index}.png"))
-        depth = images.load_depth(os.path.join(self.dep_path, f"{self.index}.png"))
-        xyz, _ = pcd.read_pcd(os.path.join(self.pcl_path, f"{self.index}.pcd"))
+        pre = self._prefetch_pop()
+        if pre is not None:
+            gray, depth, points = pre
+        else:
+            gray = images.load_gray(os.path.join(self.rgb_path, f"{self.index}.png"))
+            depth = images.load_depth(os.path.join(self.dep_path, f"{self.index}.png"))
+            points = None
+        if points is None:  # not prefetched, or the loader could not read it
+            points = pcd.read_pcd(os.path.join(self.pcl_path, f"{self.index}.pcd"))
+        xyz = points[0]
         # PCD clouds may use another depth unit than the depth image
         # (convert2PCD factor 1000 vs fr1's 5000): align them so the
         # membership images and kp3d agree
@@ -321,6 +400,7 @@ class GraphicEnd:
         self._log("error_of_transform.log", "", append=False)
 
         self.readimage()
+        self._setup_prefetch(want_pcd=not self.image_only)
         feats = self._extract_present()
         self.curr_kf = Keyframe(id=0, frame_index=self.index, features=feats)
         self._register_keyframe(self.curr_kf)
@@ -692,11 +772,14 @@ class GraphicEnd:
         fixed data-dir paths (src/GraphicEnd.cpp:661-682)."""
         self.drain_pending_loop_closures()
         self.find_more_loops()
-        self.opt.optimize(self.params.get_int("optimize_step"))
-        os.makedirs(self.data_dir, exist_ok=True)
-        tum.write_keyframes(os.path.join(self.data_dir, "keyframe.txt"),
-                            [(kf.id, kf.frame_index) for kf in self.keyframes])
-        self.opt.save(os.path.join(self.data_dir, "final_after.g2o"))
+        self.opt.optimize(self.params.get_int("optimize_step"), mesh=self.mesh)
+        if self.writes:
+            os.makedirs(self.data_dir, exist_ok=True)
+            tum.write_keyframes(os.path.join(self.data_dir, "keyframe.txt"),
+                                [(kf.id, kf.frame_index) for kf in self.keyframes])
+            self.opt.save(os.path.join(self.data_dir, "final_after.g2o"))
+        if self.mesh is not None:
+            mesh_mod.barrier()
 
     # reference-name aliases
     saveFinalResult = save_final_result  # noqa: N815
@@ -721,8 +804,12 @@ class GraphicEnd2(GraphicEnd):
         self.batch_registrar = self._make_batch_registrar()
 
     def readimage(self):
-        gray = images.load_gray(os.path.join(self.rgb_path, f"{self.index}.png"))
-        depth = images.load_depth(os.path.join(self.dep_path, f"{self.index}.png"))
+        pre = self._prefetch_pop()
+        if pre is not None:
+            gray, depth, _ = pre
+        else:
+            gray = images.load_gray(os.path.join(self.rgb_path, f"{self.index}.png"))
+            depth = images.load_depth(os.path.join(self.dep_path, f"{self.index}.png"))
         self.curr_gray = torch.tensor(gray, device=self.device)
         self.curr_depth = torch.from_numpy(depth.astype(np.int32)).to(self.device)
 

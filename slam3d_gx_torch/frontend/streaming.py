@@ -218,6 +218,13 @@ class _StreamingMixin:
         # from ("file:line"); None records nothing
         self.sync_log = None
 
+    def _setup_prefetch(self, want_pcd: bool, **kw):
+        """No per-frame native prefetch: chunks are decoded whole in the
+        loader threads, and per-frame loaders would decode the frames a
+        second time. The per-frame replays read synchronously."""
+        del want_pcd, kw
+        self._prefetch = None
+
     def _frame_files_exist(self, idx: int) -> bool:
         """Contiguous-prefix probe. The plane frontend also needs the
         frame's PCD: the chunk path backprojects the depth image and

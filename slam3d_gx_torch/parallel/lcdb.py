@@ -13,9 +13,14 @@ candidates (parallel/registration.py).
 
 Scores are computed in blocks of keyframes, so the (block, Nq, Ndb)
 distance tensor stays under _BLOCK_ELEMS elements whatever the history's
-length; a keyframe's score does not depend on its block. Not carried
-from the reference module, as multi-device matter: the mesh and the
-sharding of the stack over its "sp" axis (ROADMAP.md queue 1 item 18).
+length; a keyframe's score does not depend on its block.
+
+With a mesh (parallel/mesh.py) the rows are split over its "sp" axis,
+cyclically: keyframe i lives on sp rank i % sp, at local row i // sp.
+An add writes on the owner only and a doubling moves no row. Each rank
+scores its own rows, and the scores are all-gathered over the sp group
+and put back in keyframe order, so every rank holds all of them and
+chooses the same candidates; they equal the unsharded scores exactly.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..device import resolve_device
 from ..frontend.state import FrameFeatures
 from ..ops import match
 from ..ops.features.common import top_k
+from . import mesh as mesh_mod
 
 # elements of one block's (keyframes, Nq, Ndb) fp32 distance tensor: 64 MiB
 _BLOCK_ELEMS = 1 << 24
@@ -73,18 +79,24 @@ def score_block(db_desc, db_valid, q_desc, q_valid, floor: float) -> torch.Tenso
 class KeyframeDatabase:
     """Fixed-capacity, device-resident keyframe descriptor store on
     `device` (the card unless "cpu" is asked for). Adds write in place;
-    the capacity doubles on the device when full."""
+    the capacity doubles on the device when full. With `mesh`, the rows
+    are split over its sp axis (see the module docstring) and `desc` and
+    `valid` hold this rank's rows only."""
 
     def __init__(self, n_desc: int, dim: int, capacity: int = 64, match_floor: float = 0.0,
-                 device=None):
+                 device=None, mesh=None):
+        self.mesh = mesh
+        self.sp = mesh_mod.axis_size(mesh, mesh_mod.SP_AXIS)
+        self._sp_rank = mesh_mod.axis_rank(mesh, mesh_mod.SP_AXIS)
         self.n_desc = n_desc
         self.dim = dim
         self.match_floor = float(match_floor)
         self.count = 0
-        self.capacity = capacity
+        self.capacity = mesh_mod.pad_to_multiple(capacity, self.sp)
         dev = resolve_device(device)
-        self.desc = torch.zeros((capacity, n_desc, dim), dtype=torch.float32, device=dev)
-        self.valid = torch.zeros((capacity, n_desc), dtype=torch.bool, device=dev)
+        local = self.capacity // self.sp
+        self.desc = torch.zeros((local, n_desc, dim), dtype=torch.float32, device=dev)
+        self.valid = torch.zeros((local, n_desc), dtype=torch.bool, device=dev)
         self.block = max(1, _BLOCK_ELEMS // (n_desc * n_desc))
 
     def _grow(self):
@@ -95,21 +107,28 @@ class KeyframeDatabase:
     def add(self, features: FrameFeatures) -> int:
         if self.count == self.capacity:
             self._grow()
-        d, v = _flatten(features)
         i = self.count
-        self.desc[i] = d
-        self.valid[i] = v
+        if i % self.sp == self._sp_rank:
+            d, v = _flatten(features)
+            self.desc[i // self.sp] = d
+            self.valid[i // self.sp] = v
         self.count += 1
         return i
 
     def _scores(self, query: FrameFeatures) -> torch.Tensor:
         """(count,) scores of the query against every stored keyframe,
-        on the device."""
+        on the device (on every rank, with a mesh)."""
         qd, qv = _flatten(query)
-        blocks = [slice(c0, min(c0 + self.block, self.count))
-                  for c0 in range(0, self.count, self.block)]
-        return torch.cat([score_block(self.desc[b], self.valid[b], qd, qv, self.match_floor)
-                          for b in blocks])
+        # with a mesh: this rank's first rows, as many on every rank
+        rows = -(-self.count // self.sp)
+        blocks = [slice(c0, min(c0 + self.block, rows)) for c0 in range(0, rows, self.block)]
+        s = torch.cat([score_block(self.desc[b], self.valid[b], qd, qv, self.match_floor)
+                       for b in blocks])
+        if self.mesh is None:
+            return s
+        # rank r's local row j is keyframe j * sp + r
+        s = mesh_mod.gather_rows(s, self.mesh, mesh_mod.SP_AXIS)
+        return s.reshape(self.sp, rows).T.reshape(-1)[: self.count]
 
     def scores(self, query: FrameFeatures) -> np.ndarray:
         """(count,) host scores of the query against every stored keyframe."""

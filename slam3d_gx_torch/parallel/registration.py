@@ -17,12 +17,19 @@ Random draws are an argument, as everywhere in this package: the caller
 hands in `(B, P+2, H, 3)` uniforms for plane pairs and `(B, H, 3)` for
 image pairs, one row a pair.
 
-Not carried from the reference module, as TPU or multi-device matter:
-the device mesh and its shardings (ROADMAP.md queue 1 item 18);
-`fetch_all`'s grouping of transfers by 8 (a tactic against a relay's
-latency; here a drain is one copy); the padding of every batch to a
-fixed 32 (a guard against recompiles; eager PyTorch has none, so a batch
-has its own length).
+With a mesh (parallel/mesh.py) the batch is split over its "dp" axis:
+the batch is padded to a multiple of dp (padding rows repeat row 0 and
+are dropped), each dp rank registers its block of rows, and the packed
+rows are all-gathered over the dp group, so every rank holds the whole
+result. The caller draws the uniforms of the whole batch on every rank
+and each rank takes its own rows, so a row is the same sharded or not
+and every rank's generator stays in step.
+
+Not carried from the reference module, as TPU matter: `fetch_all`'s
+grouping of transfers by 8 (a tactic against a relay's latency; here a
+drain is one copy); the padding of every batch to a fixed 32 (a guard
+against recompiles; eager PyTorch has none, so a batch has its own
+length).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from ..config import CameraIntrinsics
 from ..frontend import pipeline
 from ..frontend.state import FrameFeatures, pack_result, unpack_result_row
+from . import mesh as mesh_mod
 
 # (packed (b,19) device tensor, rows of it that are results)
 Pending = Tuple[torch.Tensor, int]
@@ -138,14 +146,17 @@ class BatchedRegistrar:
     """Verifies all candidates of a round in one batched call instead of
     the reference's sequential loop (src/GraphicEnd.cpp:729-761).
 
-    `calls` counts the batched calls launched, `pairs` the pairs they
-    held and `fused` the scored rounds among them."""
+    With `mesh`, each batch is split over the mesh's dp axis (see the
+    module docstring). `calls` counts the batched calls launched, `pairs`
+    the pairs they held and `fused` the scored rounds among them."""
 
     def __init__(self, intr: CameraIntrinsics, image_only: bool,
-                 error_threshold: float = 1.0, match_floor: float = 0.0):
+                 error_threshold: float = 1.0, match_floor: float = 0.0, mesh=None):
         self.fn = build_batched_multipnp(
             intr, image_only=image_only, error_threshold=error_threshold,
             match_floor=match_floor)
+        self.mesh = mesh
+        self.dp = mesh_mod.axis_size(mesh, mesh_mod.DP_AXIS)
         self.calls = 0
         self.pairs = 0
         self.fused = 0
@@ -153,10 +164,22 @@ class BatchedRegistrar:
     def _dispatch_stacked(self, fa: FrameFeatures, fb: FrameFeatures, u: torch.Tensor,
                           min_inliers: int, n_valid: int) -> Pending:
         """Launch one stacked batch; the packed result stays on the
-        device until `resolve_async` copies it."""
+        device until `resolve_async` copies it. With a mesh, this rank
+        registers its dp block of the padded batch and the packed rows of
+        all blocks are gathered, with no host wait."""
         self.calls += 1
         self.pairs += n_valid
-        return pack_result(self.fn(fa, fb, u, min_inliers)), n_valid
+        if self.mesh is None:
+            return pack_result(self.fn(fa, fb, u, min_inliers)), n_valid
+        b = u.shape[0]
+        b_pad = mesh_mod.pad_to_multiple(b, self.dp)
+
+        def mine(x):
+            return mesh_mod.shard_rows(x, self.mesh, mesh_mod.DP_AXIS, b_pad)
+
+        packed = pack_result(self.fn(FrameFeatures(*map(mine, fa)),
+                                     FrameFeatures(*map(mine, fb)), mine(u), min_inliers))
+        return mesh_mod.gather_rows(packed, self.mesh, mesh_mod.DP_AXIS)[:b], n_valid
 
     def run_stacked(self, fa: FrameFeatures, fb: FrameFeatures, u: torch.Tensor,
                     min_inliers: int, n_valid: int) -> List[tuple]:
