@@ -40,6 +40,13 @@ Phases, each of which must pass or the script exits non-zero:
    it and read just after; checks the four output files, the keyframe
    count, ATE against the ground truth (< 0.05 m) and that
    `equalize_hist256` ran once per frame extraction, K1 and K2 not at all;
+   the card's keyframes, lost frames, ATE and RPE beside the JAX
+   package's on the same configuration (the record
+   slam3d_gx_torch/testing/jax_reference_outcomes.json, which
+   tests/test_torch_seed_protocol.py writes from jitted JAX runs on the
+   CPU), failing where the card's ATE exceeds JAX's by more than the
+   seed protocol's largest port-minus-JAX gap plus 0.01 m (phases 6, 9
+   and 10 the same);
 6. the image-only path: `run_SLAM_imageonly 29`
    (slam3d_gx_torch.cli.run_slam_imageonly) on the same orbit with
    GFTT/SIFT, counts reset and read the same way: the same checks, K3
@@ -721,6 +728,41 @@ def run_path(kernels, entry, work: str, traj, loops: int, expect: dict,
         want = ge.extractions * int(per)
         assert launches[k] == want, f"{k}: {launches[k]} launches, expected {want}"
     return launches, ge, stats
+
+
+# the JAX package's outcomes on this orbit (scene 3, draws 0), jitted on
+# the CPU by tests/test_torch_seed_protocol.py, with the protocol's largest
+# port-minus-JAX ATE gap of each configuration over 8 scenes x 2 draws
+JAX_RECORD = os.path.join(REPO, "slam3d_gx_torch", "testing", "jax_reference_outcomes.json")
+# the card's ATE may exceed JAX's by the protocol's largest gap (0 when
+# the port was never worse) and this margin: the card draws from its own
+# stream, so its run is one more sample of the port's spread
+JAX_GAP_MARGIN_M = 0.01
+
+
+def against_jax(ge, work: str, traj, config: str) -> None:
+    """The card's keyframes, lost frames, ATE and RPE beside the JAX
+    package's on the same configuration; fails where the card's ATE
+    exceeds JAX's by more than the protocol's largest gap plus
+    JAX_GAP_MARGIN_M."""
+    from slam3d_gx_torch.testing import synthetic
+
+    with open(JAX_RECORD) as f:
+        ref = json.load(f)["configs"][config]
+    rows = open(os.path.join(work, "data", "error_of_transform.log")).read().split()
+    start = ge.params.get_int("start_index")
+    est = [np.asarray(ge.opt.vertex_estimate(k.id), np.float64) for k in ge.keyframes]
+    gt = [traj[k.frame_index - 1] for k in ge.keyframes]
+    card = dict(keyframes=[int(k.frame_index) for k in ge.keyframes],
+                lost=[start + 1 + i for i, r in enumerate(rows) if r == "9999"],
+                ate=synthetic.ate_rmse(gt, est), rpe=synthetic.rpe_rmse(gt, est))
+    gate = ref["ate"] + max(ref["max_port_gap"], 0.0) + JAX_GAP_MARGIN_M
+    print(f"  against JAX ({config}) {ref['label']}: keyframes {card['keyframes']} card, "
+          f"{ref['keyframes']} JAX; lost frames {card['lost']} card, {ref['lost']} JAX; ATE "
+          f"{card['ate']:.6f} m card, {ref['ate']:.6f} m JAX (gate {gate:.6f} m: JAX + the "
+          f"protocol's largest gap {ref['max_port_gap']:.6f} + {JAX_GAP_MARGIN_M}); RPE "
+          f"{card['rpe']:.6f} m card, {ref['rpe']:.6f} m JAX", flush=True)
+    assert card["ate"] <= gate, f"({config}) ATE {card['ate']} above the JAX gate {gate}"
 
 
 def check_streamed(stats, per_frame_ge, per_frame_stats, label: str, syncs_allowed: bool):
@@ -1730,6 +1772,7 @@ def main(argv=()) -> int:
             kernels, run_slam.run, work_planes, traj, FRAMES - 1,
             {"equalize_hist256": True, "histogram256": False, "apply_lut256": False,
              "min_eig_response": False})
+        against_jax(ge_planes, work_planes, traj, "a")
 
     phase("image-only path: run_SLAM_imageonly on the same orbit (GFTT)")
     work_image = write_run_dir(base, "image", root, detector_name="GFTT",
@@ -1739,6 +1782,7 @@ def main(argv=()) -> int:
         {"equalize_hist256": False, "histogram256": False, "apply_lut256": False,
          "min_eig_response": True})
     assert ge_image.image_only and ge_image.params.get_int("loop_closure_batched") == 1
+    against_jax(ge_image, work_image, traj, "b")
     assert ge_image.batch_registrar.calls > 0, "the batched verifier was not used"
     if post_only:
         post_phase(kernels, dev, base, root, traj, work_image, ge_image)
@@ -1767,6 +1811,7 @@ def main(argv=()) -> int:
          "min_eig_response": True},
         argv=[str(FRAMES - 1), str(chunk), "imageonly"])
     check_streamed(stats, ge_image, stats_image, "image-only", syncs_allowed=False)
+    against_jax(stats["graphic_end"], work, traj, "d")
 
     phase(f"streamed plane path: run_SLAM_streaming {FRAMES - 1} {chunk} planes (SIFT)")
     work = write_run_dir(base, "stream_planes", root)
@@ -1776,6 +1821,7 @@ def main(argv=()) -> int:
          "min_eig_response": False},
         argv=[str(FRAMES - 1), str(chunk), "planes"])
     check_streamed(stats, ge_planes, stats_planes, "planes", syncs_allowed=True)
+    against_jax(stats["graphic_end"], work, traj, "e")
 
     planes = 3
     phase("parity modes: run_SLAM 4 with GFTT, detect_scope plane, plane_image_mode splat, "

@@ -323,3 +323,10 @@ def ate_rmse(gt: Sequence[np.ndarray], est: Sequence[np.ndarray]) -> float:
         de = (E0 @ e)[:3, 3]
         errs.append(np.sum((dg - de) ** 2))
     return float(np.sqrt(np.mean(errs)))
+
+
+def rpe_rmse(gt: Sequence[np.ndarray], est: Sequence[np.ndarray]) -> float:
+    """Translation RMSE of the relative motion between consecutive poses."""
+    errs = [np.sum(((se3.inverse(se3.inverse(g0) @ g1) @ se3.inverse(e0) @ e1)[:3, 3]) ** 2)
+            for g0, g1, e0, e1 in zip(gt, gt[1:], est, est[1:])]
+    return float(np.sqrt(np.mean(errs))) if errs else 0.0

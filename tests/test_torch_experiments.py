@@ -9,17 +9,22 @@ keypoints and 32 hypotheses where a result is held to JAX, and at
 end to end (at 160x120 and 64 keypoints GFTT registers these frames
 wrongly in both packages). Tolerances and why:
 - exp1_2 `n` (GFTT/SIFT and ORB/ORB): the port's `matching_normal`
-  against the JAX one with the same draws (the uniforms of the JAX key).
-  The JAX PnP runs inside `jax.disable_jit()` (jitted, its
-  `quartic_roots` does not finish compiling on XLA:CPU), its detectors
-  jitted. The inlier sets are equal and T agrees to 1e-4 (fp32
+  against the JAX one with the same draws (the uniforms of the JAX key),
+  the JAX one jitted under `jitted_reference()` (tests/test_torch_jaxref.py:
+  every `jax.lax.scan` unrolled once, the reference's arithmetic as it
+  is). The inlier sets are equal and T agrees to 1e-4 (fp32
   Gauss-Newton on each side).
-- exp1_2 `p`: the JAX tiered multiPnP raises under `disable_jit`, so the
-  port runs end to end on its own, on stages held to JAX elsewhere
-  (tests/test_torch_imageonly.py, tests/test_torch_multipnp.py): the
-  error.log and time.log rows have the JAX CLI's schema, and with GFTT
-  the errors against the ground truth of frames 1 and 2 are below 0.05 m
-  and 0.05 rad, in both modes, with the default seed 0. exp1_2 has no
+- exp1_2 `p` end to end (GFTT/SIFT, frames 1 and 2 at 320x240): the
+  port's CLI against the JAX CLI's `matching_planar` on the same inputs
+  and draws (the JAX CLI's `split(PRNGKey(seed), 4)`: the plane
+  extractions' Gumbel noise from keys 0 and 1, the multiPnP's uniforms
+  from key 2, replayed into the port's `planar_draws`): the error row's
+  ground truth equal, its translation and rotation errors within 1e-4,
+  the inliers exact, T within 1e-4.
+- exp1_2 end to end on the port's own draws: the error.log and time.log
+  rows have the JAX CLI's schema, and with GFTT the errors against the
+  ground truth of frames 1 and 2 are below 0.05 m and 0.05 rad, in both
+  modes, with the default seed 0. exp1_2 has no
   norm gate, so a RANSAC that draws no all-inlier triplet returns a wrong
   consensus: with seed 0 ORB/ORB does on this pair, and GFTT does on
   frames 1 and 3 at this size, so those errors are not bounded here;
@@ -50,7 +55,10 @@ from slam3d_gx_torch.testing import synthetic
 from slam3d_gx_tpu.cli import exp1_2 as jexp
 from slam3d_gx_tpu.cli import planar_features as jplanar
 from slam3d_gx_tpu.config import CameraIntrinsics
+from slam3d_gx_tpu.config import ParameterReader as JParams
 from slam3d_gx_tpu.ops import pnp as jpnp
+from test_torch_jaxref import (KeyReplay, ReplaySampler, jitted,  # noqa: F401  (fixtures)
+                              one_torch_thread)
 
 H, W, K, HYP = 120, 160, 64, 32
 CAM = dict(fx=130.0, fy=130.0, cx=80.0, cy=60.0, factor=5000.0)
@@ -92,15 +100,14 @@ def workdir(path, root, **extra):
 
 
 @pytest.mark.parametrize("detector,descriptor", [("GFTT", "SIFT"), ("ORB", "ORB")])
-def test_matching_normal_matches_jax(dataset, monkeypatch, detector, descriptor):
+def test_matching_normal_matches_jax(dataset, monkeypatch, jitted, detector, descriptor):
     (g1, d1), (g2, _) = frame(dataset, 1), frame(dataset, 2)
     key = jax.random.PRNGKey(0)
     solves = []
-    eager_solve = jpnp.solve_pnp_ransac
+    solve_pnp = jpnp.solve_pnp_ransac
 
     def solve(*args, **kw):
-        with jax.disable_jit():
-            solves.append(eager_solve(*args, **kw))
+        solves.append(solve_pnp(*args, **kw))
         return solves[-1]
 
     monkeypatch.setattr(jpnp, "solve_pnp_ransac", solve)
@@ -145,6 +152,49 @@ def test_exp1_2_writes_the_reference_rows(exp1_2_runs):
     labels = [r.split()[0] for r in (work / "data/time.log").read_text().splitlines()]
     assert labels == ["ExtractPlane", "DetectKeypoints", "Descriptor", "Compute3dPosition",
                       "RANSAC"]
+
+
+def test_exp1_2_planar_matches_jax(run_dataset, tmp_path, monkeypatch, jitted):
+    """exp1_2 1 2 GFTT SIFT p: the port's CLI on the reference's draws
+    against the JAX CLI's matching_planar."""
+    work = workdir(tmp_path, run_dataset)
+    monkeypatch.chdir(work)
+    jparams = JParams("./parameters.yaml")
+    key = jax.random.PRNGKey(jparams.get_int("seed"))
+    keys = jax.random.split(key, 4)
+    (g1, d1), (g2, d2) = frame(run_dataset, 1), frame(run_dataset, 2)
+    cloud = dict(z_max=jparams.get_float("optimize_step"), grid_leaf=jparams.get_float("grid_leaf"),
+                 cap=jparams.get_int("cloud_capacity") or int(g1.size), intr=jparams.intrinsics,
+                 align_scale=jparams.get_bool("align_cloud_scale"))
+    c1 = jexp._load_cloud(os.path.join(run_dataset, "pcd/1.pcd"), depth=d1, **cloud)
+    c2 = jexp._load_cloud(os.path.join(run_dataset, "pcd/2.pcd"), depth=d2, **cloud)
+    with open(tmp_path / "jax_time.log", "w") as timelog:
+        ref_T, ref_inl = jexp.matching_planar(
+            g1, d1, *c1, g2, d2, *c2, jparams.intrinsics, jparams, "GFTT", "SIFT",
+            jparams.get_int("max_keypoints"), jparams.get_int("ransac_hypotheses"), key,
+            timelog)
+
+    planes = jparams.get_int("max_planes")
+    rep = KeyReplay(0, jparams.get_int("ransac_hypotheses"), planes=planes)
+    draws = (ReplaySampler(keys[0], planes), ReplaySampler(keys[1], planes),
+             torch.from_numpy(rep.pair_uniforms(keys[2])))
+    monkeypatch.setattr(texp, "planar_draws", lambda params, hypotheses, gen: draws)
+    Ts = []
+    matching = texp.matching_planar
+    monkeypatch.setattr(texp, "matching_planar",
+                        lambda *a, **kw: Ts.append(matching(*a, **kw)) or Ts[-1])
+    assert texp.main(["1", "2", "GFTT", "SIFT", "p"], device="cpu") == 0
+    (T, inl), = Ts
+    assert inl == ref_inl
+    np.testing.assert_allclose(T, ref_T, atol=1e-4)
+    row = (work / "data/exp1/error.log").read_text().split()
+    Tr = texp.ground_truth(run_dataset, "1", "2")
+    Terr = np.linalg.inv(Tr) @ ref_T
+    assert row[:2] == ["1", "2"] and int(row[6]) == ref_inl
+    assert float(row[2]) == pytest.approx(float(f"{np.linalg.norm(Tr[:3, 3]):g}"))
+    assert float(row[3]) == pytest.approx(float(f"{texp.error_angle(Tr):g}"))
+    assert float(row[4]) == pytest.approx(np.linalg.norm(Terr[:3, 3]), abs=1e-4)
+    assert float(row[5]) == pytest.approx(texp.error_angle(Terr), abs=1e-4)
 
 
 def test_exp1_2_rejects_bad_arguments(run_dataset, tmp_path, monkeypatch):

@@ -9,10 +9,12 @@ Tolerances and why:
   keypoints are integer pixels), kp3d 1e-5, plane coefficients 1e-4,
   descriptors +-1 (integers, each entry may round the other way by one
   fp32 ulp, tests/test_torch_features.py);
-- `build_multipnp_image` against JAX inside `jax.disable_jit()` (jitted,
-  the JAX PnP does not finish compiling on XLA:CPU) with the reference's
-  draw `jax.random.uniform(key, (H,3))`: `ok` and the inlier count
-  exact, T and norm within 1e-4 (fp32 Gauss-Newton on each side);
+- `build_multipnp_image` against JAX, jitted under `jitted_reference()`
+  (tests/test_torch_jaxref.py: every `jax.lax.scan` unrolled once, so
+  XLA:CPU compiles the PnP stack; the reference's arithmetic as it is),
+  with the reference's draw `jax.random.uniform(key, (H,3))`: `ok` and
+  the inlier count exact, T and norm within 1e-4 (fp32 Gauss-Newton on
+  each side);
 - GraphicEnd2 alone over a short orbit (320x240, 256 keypoints, 128
   hypotheses): ATE below 0.05 m, the bound of the JAX package's own
   image-only test (tests/test_e2e.py:67), and the reference's file set.
@@ -41,6 +43,7 @@ from slam3d_gx_tpu.config import CameraIntrinsics
 from slam3d_gx_tpu.frontend import pipeline as jpipe
 from slam3d_gx_tpu.ops import pointcloud as jpc
 from slam3d_gx_tpu.testing import synthetic
+from test_torch_jaxref import jitted, one_torch_thread  # noqa: F401  (fixtures)
 
 H, W, K = 120, 160, 64
 INTR = CameraIntrinsics(fx=130.0, fy=130.0, cx=80.0, cy=60.0, factor=5000.0)
@@ -132,7 +135,7 @@ def test_plane_extractor_with_gftt_matches_jax(frame):
             assert np.abs(pp[:, 5:] - rr[:, 5:]).max() <= 1.0
 
 
-def test_multipnp_image_matches_jax():
+def test_multipnp_image_matches_jax(jitted):
     big = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
     tbig = TorchIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
     hyp = 32
@@ -142,10 +145,9 @@ def test_multipnp_image_matches_jax():
     fb = fb._replace(desc=jnp.round(jnp.abs(fb.desc)))
     key = jax.random.PRNGKey(3)
     fn = jpipe.build_multipnp_image(big, hypotheses=hyp)
-    with jax.disable_jit():
-        ref = fn(fa, fb, key, 12)
-        ref_T, ref_norm = np.asarray(ref.T), float(ref.norm)
-        ref_inl, ref_ok = int(ref.inliers), bool(ref.ok)
+    ref = fn(fa, fb, key, 12)
+    ref_T, ref_norm = np.asarray(ref.T), float(ref.norm)
+    ref_inl, ref_ok = int(ref.inliers), bool(ref.ok)
     assert ref_ok
     u = interop.pnp_uniforms([np.asarray(jax.random.uniform(key, (hyp, 3)))], "cpu")[0]
     pa = interop.features_from_numpy([np.asarray(a) for a in fa], "cpu")

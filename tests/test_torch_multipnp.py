@@ -1,10 +1,15 @@
 """Parity of the port's multiPnP (plane path registration) with the JAX package.
 
-The JAX multiPnP is run inside `jax.disable_jit()`: jitted, its
-unrolled 24-step `quartic_roots` does not finish compiling on XLA:CPU.
-Only `refine_mode="full"` can run that way (the default "tiered" mode
-has a zero-length refine scan, which disable_jit refuses), so "tiered"
-is held at stage level here: against "full" on an exact frame pair.
+The JAX multiPnP runs jitted under `jitted_reference()`
+(tests/test_torch_jaxref.py): every `jax.lax.scan` takes `unroll=1`,
+which lays the reference's 24-step Durand-Kerner sweep and LM polish
+out as loops instead of unrolled code. The steps and their arithmetic
+are the reference's; only XLA:CPU's compile, which does not finish on
+the unrolled form, changes. So both refine modes are held against JAX:
+"full", and "tiered", the frontend's default (no polish in the
+per-plane solves, a 4-step polish in the pooled one), on an exact pair
+and on a pair with pixel noise and outliers. "tiered" is also held
+against "full" on an exact pair at frontend widths.
 
 Both packages get the same features (JAX arrays handed across as numpy
 through `slam3d_gx_torch.interop`) and the same draws: the uniforms of
@@ -25,6 +30,7 @@ from slam3d_gx_torch.frontend import pipeline as tpipe
 from slam3d_gx_torch.frontend.state import result_to_host
 from slam3d_gx_tpu.config import CameraIntrinsics
 from slam3d_gx_tpu.frontend import pipeline as jpipe
+from test_torch_jaxref import jitted, one_torch_thread  # noqa: F401  (fixtures)
 
 INTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 TINTR = TorchIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
@@ -41,6 +47,17 @@ def pair(seed, k=K):
             fb._replace(desc=jnp.round(jnp.abs(fb.desc))))
 
 
+def noisy_pair(seed, k=K, sigma=0.5, outliers=0.25):
+    """pair(seed) with Gaussian pixel noise (sigma px) on the target's
+    keypoints and a share of them moved to random pixels."""
+    fa, fb = pair(seed, k)
+    rng = np.random.default_rng(100 + seed)
+    uv = np.array(fb.uv) + rng.normal(0.0, sigma, fb.uv.shape)
+    moved = rng.random(uv.shape[:2]) < outliers
+    uv[moved] = rng.uniform([0.0, 0.0], [320.0, 240.0], (int(moved.sum()), 2))
+    return fa, fb._replace(uv=jnp.asarray(uv, jnp.float32))
+
+
 def to_port(f):
     return interop.features_from_numpy([np.asarray(a) for a in f], "cpu")
 
@@ -52,15 +69,14 @@ def reference_uniforms(key, p=P, hyp=HYP):
 
 
 @pytest.fixture(scope="module")
-def reference_run():
+def reference_run(jitted):
     """One JAX multiPnP (refine_mode "full") on an exact pair, at the
     frontend's tracking gate of 12 inliers."""
     fa, fb = pair(0)
     key = jax.random.PRNGKey(0)
     fn = jpipe.build_multipnp_planes(INTR, hypotheses=HYP, refine_mode="full")
-    with jax.disable_jit():
-        ref = fn(fa, fb, key, 12)
-        out = (np.asarray(ref.T), float(ref.norm), int(ref.inliers), bool(ref.ok))
+    ref = fn(fa, fb, key, 12)
+    out = (np.asarray(ref.T), float(ref.norm), int(ref.inliers), bool(ref.ok))
     return fa, fb, key, out
 
 
@@ -84,6 +100,24 @@ def test_multipnp_full_matches_jax(reference_run, gate):
         # reference's does (pipeline.py:393)
         assert not ok and norm == 0.0
         np.testing.assert_array_equal(T, np.eye(4))
+
+
+@pytest.mark.parametrize("kind", ["exact", "noisy"])
+def test_multipnp_tiered_matches_jax(jitted, kind):
+    """The default refine mode against the JAX one on the same features
+    and draws: the exact pair, and a pair with 0.5 px noise and a quarter
+    of the target's keypoints moved to random pixels."""
+    fa, fb = pair(0) if kind == "exact" else noisy_pair(1)
+    key = jax.random.PRNGKey(7)
+    ref = jpipe.build_multipnp_planes(INTR, hypotheses=HYP)(fa, fb, key, 12)
+    ref_T, ref_norm, ref_inl, ref_ok = (np.asarray(ref.T), float(ref.norm), int(ref.inliers),
+                                        bool(ref.ok))
+    assert ref_ok
+    T, norm, inl, ok = result_to_host(tpipe.build_multipnp_planes(TINTR)(
+        to_port(fa), to_port(fb), reference_uniforms(key), 12))
+    assert (ok, inl) == (ref_ok, ref_inl)
+    assert norm == pytest.approx(ref_norm, abs=1e-4)
+    np.testing.assert_allclose(T, ref_T, atol=1e-4)
 
 
 def test_multipnp_tiered_and_full_agree_on_an_exact_pair():
@@ -127,10 +161,9 @@ def test_pooled_reproj_reaches_the_pooled_solve(reference_run):
     """exp1_2's MatchingPlanar passes ransac_accuracy as pooled_reproj: at
     3 px the port matches the JAX function given the same value."""
     fa, fb, key, (_, _, inl_8px, _) = reference_run
-    with jax.disable_jit():
-        ref = jpipe.build_multipnp_planes(INTR, hypotheses=HYP, pooled_reproj=3.0,
-                                          refine_mode="full")(fa, fb, key, 12)
-        ref_T, ref_inl, ref_ok = np.asarray(ref.T), int(ref.inliers), bool(ref.ok)
+    ref = jpipe.build_multipnp_planes(INTR, hypotheses=HYP, pooled_reproj=3.0,
+                                      refine_mode="full")(fa, fb, key, 12)
+    ref_T, ref_inl, ref_ok = np.asarray(ref.T), int(ref.inliers), bool(ref.ok)
     port_fn = tpipe.build_multipnp_planes(TINTR, pooled_reproj=3.0, refine_mode="full")
     T, _, inl, ok = result_to_host(port_fn(to_port(fa), to_port(fb), reference_uniforms(key), 12))
     assert (inl, ok) == (ref_inl, ref_ok) and ok

@@ -1,9 +1,12 @@
 """Parity of the port's quartic solver, P3P and RANSAC PnP with the JAX package.
 
-The JAX `quartic_roots`, `p3p_grunert` and `solve_pnp_ransac` run inside
-`jax.disable_jit()`: jitted, the unrolled 24-step Durand-Kerner scan
-does not finish compiling on XLA:CPU. `refine_pnp` is jitted as the
-reference uses it. Both packages get the same uniforms `u` (those of the
+The JAX `quartic_roots`, `p3p_grunert`, `refine_pnp` and
+`solve_pnp_ransac` run jitted, as the reference uses them, under
+`jitted_reference()` (tests/test_torch_jaxref.py): every `jax.lax.scan`
+takes `unroll=1`, so the 24-step Durand-Kerner sweep and the LM polish
+are compiled as loops rather than unrolled (XLA:CPU does not finish
+compiling the unrolled sweep). The steps and their arithmetic are the
+reference's. Both packages get the same uniforms `u` (those of the
 reference's key). Tolerances and why:
 - roots: 1e-5 relative, complex64 arithmetic in the same order;
 - P3P: the valid-candidate masks exactly; per triplet, the candidate
@@ -26,6 +29,7 @@ from slam3d_gx_torch.ops import pnp as tpnp
 from slam3d_gx_torch.ops import polynomial as tpoly
 from slam3d_gx_tpu.ops import pnp as jpnp
 from slam3d_gx_tpu.ops import polynomial as jpoly
+from test_torch_jaxref import jitted, one_torch_thread  # noqa: F401  (fixtures)
 
 CAM = (260.0, 260.0, 160.0, 120.0)
 RV = np.array([0.05, -0.1, 0.02], np.float32)
@@ -53,12 +57,11 @@ def problem(seed, n, outliers):
     return obj, img, mask
 
 
-def test_quartic_roots_match_jax():
+def test_quartic_roots_match_jax(jitted):
     rng = np.random.default_rng(0)
     co = rng.normal(size=(256, 5)).astype(np.float32)
     co[:8, 0] = 1e-14  # regularized leading coefficient
-    with jax.disable_jit():
-        ref = np.asarray(jpoly.quartic_roots(jnp.asarray(co)))
+    ref = np.asarray(jpoly.quartic_roots(jnp.asarray(co)))
     port = tpoly.quartic_roots(t(co)).numpy()
     assert port.dtype == np.complex64
     ok = np.isfinite(ref).all(1)
@@ -67,14 +70,14 @@ def test_quartic_roots_match_jax():
                                   np.asarray(jpoly.real_roots_mask(jnp.asarray(port))))
 
 
-def test_p3p_grunert_matches_jax():
+def test_p3p_grunert_matches_jax(jitted):
     rng = np.random.default_rng(1)
     P = rng.uniform([-1, -1, 2], [1, 1, 4], (32, 3, 3)).astype(np.float32)
     R = tlie.rodrigues(t(RV)).numpy()
     pc = P @ R.T + TV
     f = (pc / np.linalg.norm(pc, axis=-1, keepdims=True)).astype(np.float32)
-    with jax.disable_jit():
-        Rj, tj, vj = (np.asarray(a) for a in jpnp.p3p_grunert(jnp.asarray(P), jnp.asarray(f)))
+    Rj, tj, vj = (np.asarray(a) for a in jax.jit(jpnp.p3p_grunert)(jnp.asarray(P),
+                                                                    jnp.asarray(f)))
     Rt, tt, vt = (a.numpy() for a in tpnp.p3p_grunert(t(P), t(f)))
     assert Rt.shape == (32, 12, 3, 3) and tt.shape == (32, 12, 3)
     np.testing.assert_array_equal(vt, vj)
@@ -86,7 +89,7 @@ def test_p3p_grunert_matches_jax():
         assert np.median(best) < 1e-4 and best.max() < 2e-3
 
 
-def test_refine_pnp_matches_jax():
+def test_refine_pnp_matches_jax(jitted):
     obj, img, mask = problem(2, 96, 0)
     w = mask.astype(np.float32)
     rv0, tv0 = RV + 0.02, TV - 0.03
@@ -103,22 +106,21 @@ def test_refine_pnp_matches_jax():
 
 
 @pytest.mark.parametrize("n", [64, 200])
-def test_solve_pnp_ransac_matches_jax(n):
+def test_solve_pnp_ransac_matches_jax(jitted, n):
     """n=64 scores every candidate on all points; n=200 takes the
     two-stage prescore (pnp.py:433-446). The second solve adds the
     extrinsic-guess hypothesis (pnp.py:448-454) at 3 px."""
     obj, img, mask = problem(3, n, n // 4)
     key = jax.random.PRNGKey(n)
     u = t(np.asarray(jax.random.uniform(key, (32, 3))))
-    with jax.disable_jit():
-        ref = jpnp.solve_pnp_ransac(jnp.asarray(obj), jnp.asarray(img), jnp.asarray(mask),
-                                    *CAM, key, hypotheses=32, refine_iters=4)
-        ref = [np.asarray(a) for a in ref]
-        ref2 = jpnp.solve_pnp_ransac(jnp.asarray(obj), jnp.asarray(img), jnp.asarray(ref[2]),
-                                     *CAM, key, reproj_thresh=3.0, hypotheses=32,
-                                     refine_iters=4, guess_rvec=jnp.asarray(ref[0]),
-                                     guess_tvec=jnp.asarray(ref[1]))
-        ref2 = [np.asarray(a) for a in ref2]
+    ref = jpnp.solve_pnp_ransac(jnp.asarray(obj), jnp.asarray(img), jnp.asarray(mask),
+                                *CAM, key, hypotheses=32, refine_iters=4)
+    ref = [np.asarray(a) for a in ref]
+    ref2 = jpnp.solve_pnp_ransac(jnp.asarray(obj), jnp.asarray(img), jnp.asarray(ref[2]),
+                                 *CAM, key, reproj_thresh=3.0, hypotheses=32,
+                                 refine_iters=4, guess_rvec=jnp.asarray(ref[0]),
+                                 guess_tvec=jnp.asarray(ref[1]))
+    ref2 = [np.asarray(a) for a in ref2]
     port = tpnp.solve_pnp_ransac(t(obj), t(img), t(mask), *CAM, u, refine_iters=4)
     port2 = tpnp.solve_pnp_ransac(t(obj), t(img), t(ref[2]), *CAM, u, reproj_thresh=3.0,
                                   refine_iters=4, guess_rvec=t(ref[0]), guess_tvec=t(ref[1]))

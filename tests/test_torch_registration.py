@@ -6,14 +6,18 @@ wiring into both frontends, on the CPU.
   single-pair call on the same draws: `ok` and the inlier count exact, T
   within 1e-5 (a batched matrix product may block its sums differently
   from the single one);
-- the image verifier against the JAX `build_batched_multipnp` inside
-  `jax.disable_jit()` (its PnP does not finish compiling on XLA:CPU), 2
-  pairs, 32 keypoints, 16 hypotheses, with the reference's draws
+- both verifiers against the JAX `build_batched_multipnp`
+  (parallel/registration.py:58), jitted under `jitted_reference()`
+  (tests/test_torch_jaxref.py: every `jax.lax.scan` unrolled once, the
+  reference's arithmetic as it is), with the reference's draws
   (`jax.random.split(key, B)`): `ok` and inliers exact, T within 1e-4
-  (fp32 Gauss-Newton on each side). The plane verifier cannot run that
-  way: the reference always builds it "tiered", whose zero-length refine
-  scan `disable_jit` refuses, so it rests on row-equals-single, the
-  single call being held against JAX in tests/test_torch_multipnp.py;
+  (fp32 Gauss-Newton on each side). The image verifier on 2 pairs, 32
+  keypoints, 16 hypotheses; the plane verifier, which the reference
+  always builds "tiered", on 4 pairs (three exact, one of unrelated
+  frames that both reject); and the registrars' round over the store
+  (`dispatch_against_one`), where the JAX one pads each chunk to 32
+  rows by repeating keyframe 0 and splits its key once more per chunk,
+  the port gathers only the real rows: the real rows agree;
 - `resolve_async` keeps launch order and honours `n_valid`;
 - both frontends finish a short orbit with `loop_closure_batched` 1 and
   0: the file set, and ATE below 0.06 m (the bound of
@@ -41,6 +45,7 @@ from slam3d_gx_torch.parallel import registration as treg
 from slam3d_gx_torch.testing import synthetic
 from slam3d_gx_tpu.config import CameraIntrinsics
 from slam3d_gx_tpu.parallel import registration as jreg
+from test_torch_jaxref import KeyReplay, jitted, one_torch_thread  # noqa: F401  (fixtures)
 
 INTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 TINTR = TorchIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
@@ -118,16 +123,15 @@ def test_batched_rows_equal_the_single_call(image_only):
         batched(pairs[0][0], pairs[0][1], u[0], 12)
 
 
-def test_batched_image_verifier_matches_jax():
+def test_batched_image_verifier_matches_jax(jitted):
     jpairs = [jax_pair(s, 1) for s in (0, 1)]
     hyp = 16
     key = jax.random.PRNGKey(5)
     keys = jax.random.split(key, len(jpairs))
     fn = jreg.build_batched_multipnp(INTR, image_only=True, hypotheses=hyp)
-    with jax.disable_jit():
-        ref = fn(jreg.stack_features([a for a, _ in jpairs]),
-                 jreg.stack_features([b for _, b in jpairs]), keys, jnp.int32(12))
-        ref = [np.asarray(x) for x in ref]
+    ref = fn(jreg.stack_features([a for a, _ in jpairs]),
+             jreg.stack_features([b for _, b in jpairs]), keys, jnp.int32(12))
+    ref = [np.asarray(x) for x in ref]
     u = interop.pnp_uniforms_batch(
         [np.asarray(jax.random.uniform(k, (hyp, 3))) for k in keys], "cpu")
     fa = interop.stacked_features_from_numpy(
@@ -141,6 +145,60 @@ def test_batched_image_verifier_matches_jax():
     np.testing.assert_array_equal(res.inliers.numpy(), ref_inl)
     np.testing.assert_allclose(res.norm.numpy(), ref_norm, atol=1e-4)
     np.testing.assert_allclose(res.T.numpy(), ref_T, atol=1e-4)
+
+
+def _jax_plane_pairs():
+    """Three exact plane pairs and one of unrelated frames."""
+    pairs = [jax_pair(s, 3) for s in (0, 1, 2)]
+    return pairs + [(pairs[0][0], pairs[1][1])]
+
+
+def test_batched_plane_verifier_matches_jax(jitted):
+    jpairs = _jax_plane_pairs()
+    key = jax.random.PRNGKey(6)
+    keys = jax.random.split(key, len(jpairs))
+    ref = jreg.build_batched_multipnp(INTR, hypotheses=HYP)(
+        jreg.stack_features([a for a, _ in jpairs]),
+        jreg.stack_features([b for _, b in jpairs]), keys, jnp.int32(12))
+    ref_T, ref_norm, ref_inl, ref_ok = (np.asarray(x) for x in ref)
+    rep = KeyReplay(0, HYP, planes=3)
+    u = interop.pnp_uniforms_batch([rep.pair_uniforms(k) for k in keys], "cpu")
+    fa = interop.stacked_features_from_numpy([[np.asarray(x) for x in a] for a, _ in jpairs],
+                                             "cpu")
+    fb = interop.stacked_features_from_numpy([[np.asarray(x) for x in b] for _, b in jpairs],
+                                             "cpu")
+    res = treg.build_batched_multipnp(TINTR)(fa, fb, u, 12)
+    assert ref_ok.tolist() == [True, True, True, False]
+    np.testing.assert_array_equal(res.ok.numpy(), ref_ok)
+    np.testing.assert_array_equal(res.inliers.numpy(), ref_inl)
+    np.testing.assert_allclose(res.norm.numpy(), ref_norm, atol=1e-4)
+    np.testing.assert_allclose(res.T.numpy(), ref_T, atol=1e-4)
+
+
+def test_plane_registrar_round_matches_jax(jitted):
+    """A loop-closure round over the keyframe store: the JAX registrar
+    pads the chunk to 32 rows with keyframe 0, the port's does not."""
+    jpairs = _jax_plane_pairs()
+    frames = [a for a, _ in jpairs[:3]]
+    target = jpairs[1][1]  # the partner of stored frame 1 only
+    cand = [1, 0, 2, 1]
+    key = jax.random.PRNGKey(8)
+    jstore = jreg.FeatureStore(frames[0])
+    for f in frames:
+        jstore.add(f)
+    ref = jreg.BatchedRegistrar(INTR, image_only=False, hypotheses=HYP).run_against_one(
+        jstore, cand, target, key, 12)
+    tstore = treg.FeatureStore(to_port(frames[0]))
+    for f in frames:
+        tstore.add(to_port(f))
+    out = treg.BatchedRegistrar(TINTR, image_only=False).run_against_one(
+        tstore, cand, to_port(target), KeyReplay(0, HYP, planes=3).round_uniforms(key, len(cand)),
+        12)
+    assert [r[3] for r in ref] == [True, False, False, True]
+    for (T, norm, inl, ok), (rT, rnorm, rinl, rok) in zip(out, ref):
+        assert (ok, inl) == (bool(rok), int(rinl))
+        assert norm == pytest.approx(float(rnorm), abs=1e-4)
+        np.testing.assert_allclose(T, np.asarray(rT), atol=1e-4)
 
 
 def test_registrar_chunks_keep_order_and_n_valid():

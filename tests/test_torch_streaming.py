@@ -8,16 +8,18 @@ CPU.
   multiPnP, give the same 59-column records to 1e-5 and the same carry,
   with and without the rescue. The port's tracker also registers the
   keyframe against `last` only when it carries no registration of it.
-- One real image-only chunk of 3 frames (320x240, GFTT + SIFT, 256
-  keypoints, 128 hypotheses), the JAX tracker inside `jax.disable_jit()`
-  (jitted, its multiPnP does not finish compiling on XLA:CPU) against
-  the port's given the same draws (`interop.chunk_draws`): `ok`,
-  `new_kf`, `lost` and the inlier counts exact; T, norm and the robot's
-  position within 1e-4, the multiPnP tolerance of
-  tests/test_torch_imageonly.py.
-- A 2-frame plane chunk is held against the port's own per-frame
-  stages on the same draws, not against JAX: the JAX plane chunk under
-  `jax.disable_jit()` takes minutes on this CPU.
+- Real chunks against the JAX tracker, jitted under `jitted_reference()`
+  (tests/test_torch_jaxref.py: every `jax.lax.scan` unrolled once, the
+  reference's arithmetic as it is), given the same draws
+  (`interop.chunk_draws`, or the replay of tests/test_torch_jaxref.py):
+  an image-only chunk of 3 frames (320x240, GFTT + SIFT, 256 keypoints,
+  128 hypotheses) and a plane chunk of 3 frames (SIFT + SIFT, the
+  streaming extractor's backprojected cloud, the reference's Gumbel
+  draws, the rescue on): `ok`, `new_kf`, `lost`, the rescue flag and the
+  inlier counts exact; T, norm and the robot's position within 1e-4,
+  the multiPnP tolerance of tests/test_torch_imageonly.py.
+- The plane chunk is also held against the port's own per-frame stages
+  on the same draws, record for record.
 - The JAX package's streaming tests, ported to the port's frontends on
   `device="cpu"` (13-frame 320x240 orbit): streamed against per-frame
   decisions and ATE, the plane pipeline, odometry edges, a blackout
@@ -48,10 +50,13 @@ from slam3d_gx_torch.geometry import se3
 from slam3d_gx_torch.io import images as img_io
 from slam3d_gx_torch.testing import synthetic
 from slam3d_gx_tpu.config import CameraIntrinsics
+from slam3d_gx_tpu.config import ParameterReader as JParams
 from slam3d_gx_tpu.frontend import pipeline as jpipe
 from slam3d_gx_tpu.frontend import streaming as jstream
 from slam3d_gx_tpu.frontend.state import FrameFeatures as JFeatures
 from slam3d_gx_tpu.frontend.state import MultiPnPResult as JResult
+from test_torch_jaxref import (KeyReplay, ReplaySampler, jitted,  # noqa: F401  (fixtures)
+                              one_torch_thread)
 
 INTR = TorchIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 JINTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
@@ -210,7 +215,7 @@ def _frame_draws(keys, reg_uniforms, gumbel=None):
     return out
 
 
-def test_image_chunk_decisions_match_jax(dataset):
+def test_image_chunk_decisions_match_jax(dataset, jitted):
     root, _ = dataset
     frames = [_render(root, i) for i in (1, 2, 3, 4)]
     frames = [(g.copy(), d) for g, d in frames]
@@ -224,12 +229,11 @@ def test_image_chunk_decisions_match_jax(dataset):
                                      jpipe.build_multipnp_image(JINTR, hypotheses=HYP),
                                      max_pos_change=0.05, chunk=3)
     eye = jnp.eye(4, dtype=jnp.float32)
-    with jax.disable_jit():
-        _, _, jrecs = jtracker(jkf, eye, eye, jnp.int32(0), jkf, jnp.asarray(grays),
-                               jnp.asarray(depths), keys)
-        jrecs = np.asarray(jrecs)
-        draws = interop.chunk_draws(
-            _frame_draws(keys, lambda k: np.asarray(jax.random.uniform(k, (HYP, 3)))), "cpu")
+    _, _, jrecs = jtracker(jkf, eye, eye, jnp.int32(0), jkf, jnp.asarray(grays),
+                           jnp.asarray(depths), keys)
+    jrecs = np.asarray(jrecs)
+    draws = interop.chunk_draws(
+        _frame_draws(keys, lambda k: np.asarray(jax.random.uniform(k, (HYP, 3)))), "cpu")
 
     text = tpipe.build_image_extractor("GFTT", "SIFT", INTR, max_kp=256)
     tkf = text(torch.from_numpy(frames[0][0]), torch.from_numpy(frames[0][1].astype(np.int32)))
@@ -248,6 +252,50 @@ def test_image_chunk_decisions_match_jax(dataset):
     np.testing.assert_allclose(trecs[:, :17], jrecs[:, :17], atol=1e-4)  # T, norm
     np.testing.assert_allclose(trecs[:, 21:24], jrecs[:, 21:24], atol=1e-4)  # robot t
     assert not trecs[:, 24:].any() and not jrecs[:, 24:].any()
+
+
+def test_plane_chunk_decisions_match_jax(dataset, tmp_path, jitted):
+    """A real plane chunk of 3 frames, the rescue on, against the JAX
+    tracker of the JAX StreamingGraphicEnd on the same draws."""
+    root, _ = dataset
+    frames = [_render(root, i) for i in (1, 2, 3, 4)]
+    grays = np.stack([g for g, _ in frames[1:]])
+    depths = np.stack([d for _, d in frames[1:]])
+    kf_key, chunk_key = jax.random.split(jax.random.PRNGKey(9))
+
+    jge = jstream.StreamingGraphicEnd(JParams(None, overrides=_overrides(root)),
+                                      data_dir=str(tmp_path / "j"), chunk=3)
+    jext = jge._make_extract_fn()
+    jkf = jext(jnp.asarray(frames[0][0], jnp.float32), jnp.asarray(frames[0][1], jnp.float32),
+               kf_key)
+    jtracker = jstream.build_tracker(jext, jge.multipnp, 0.05, 3, rescue=True,
+                                     rescue_inliers=jge.loop_closure_inliers,
+                                     rescue_error=jge.loop_closure_error)
+    eye = jnp.eye(4, dtype=jnp.float32)
+    _, _, jrecs = jtracker(jkf, eye, eye, jnp.int32(0), jkf, jnp.asarray(grays),
+                           jnp.asarray(depths), jax.random.split(chunk_key, 3))
+    jrecs = np.asarray(jrecs)
+
+    ge = tstream.StreamingGraphicEnd(_params(root), data_dir=str(tmp_path / "t"), chunk=3,
+                                     device="cpu")
+    ext = ge._make_extract_fn()
+    tkf = ext(torch.from_numpy(frames[0][0]), torch.from_numpy(frames[0][1].astype(np.int32)),
+              ReplaySampler(kf_key, ge.max_planes))
+    tracker = tstream.build_tracker(ext, ge._multipnp, 0.05, 3, rescue=True,
+                                    rescue_inliers=ge.loop_closure_inliers,
+                                    rescue_error=ge.loop_closure_error)
+    carry = tstream.TrackCarry(tkf, torch.eye(4), torch.eye(4), torch.tensor(0, dtype=torch.int32),
+                               tkf, torch.eye(4), torch.tensor(False))
+    _, feats, trecs = tracker(carry, torch.from_numpy(grays),
+                              torch.from_numpy(depths.astype(np.int32)),
+                              KeyReplay(0, HYP, planes=ge.max_planes).chunk_draws(chunk_key, 3))
+    trecs = trecs.numpy()
+    assert int(feats.plane_valid[0].sum()) >= 1
+    np.testing.assert_array_equal(trecs[:, 17:21], jrecs[:, 17:21])  # inliers ok new_kf lost
+    np.testing.assert_array_equal(trecs[:, 24], jrecs[:, 24])  # rescued
+    assert jrecs[:, 18].sum() >= 1
+    np.testing.assert_allclose(trecs[:, :17], jrecs[:, :17], atol=1e-4)  # T, norm
+    np.testing.assert_allclose(trecs[:, 21:24], jrecs[:, 21:24], atol=1e-4)  # robot t
 
 
 # -- a plane chunk against the port's own per-frame stages -----------------------
