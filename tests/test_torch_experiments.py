@@ -10,9 +10,8 @@ end to end (at 160x120 and 64 keypoints GFTT registers these frames
 wrongly in both packages). Tolerances and why:
 - exp1_2 `n` (GFTT/SIFT and ORB/ORB): the port's `matching_normal`
   against the JAX one with the same draws (the uniforms of the JAX key),
-  the JAX one jitted under `jitted_reference()` (tests/test_torch_jaxref.py:
-  every `jax.lax.scan` unrolled once, the reference's arithmetic as it
-  is). The inlier sets are equal and T agrees to 1e-4 (fp32
+  the JAX one jitted under `jitted_reference()` (tests/test_torch_jaxref.py).
+  The inlier sets are equal and T agrees to 1e-4 (fp32
   Gauss-Newton on each side).
 - exp1_2 `p` end to end (GFTT/SIFT, frames 1 and 2 at 320x240): the
   port's CLI against the JAX CLI's `matching_planar` on the same inputs
@@ -57,8 +56,7 @@ from slam3d_gx_tpu.cli import planar_features as jplanar
 from slam3d_gx_tpu.config import CameraIntrinsics
 from slam3d_gx_tpu.config import ParameterReader as JParams
 from slam3d_gx_tpu.ops import pnp as jpnp
-from test_torch_jaxref import (KeyReplay, ReplaySampler, jitted,  # noqa: F401  (fixtures)
-                              one_torch_thread)
+from test_torch_jaxref import KeyReplay, ReplaySampler, jitted  # noqa: F401  (a fixture)
 
 H, W, K, HYP = 120, 160, 64, 32
 CAM = dict(fx=130.0, fy=130.0, cx=80.0, cy=60.0, factor=5000.0)

@@ -10,9 +10,7 @@ Tolerances and why:
   descriptors +-1 (integers, each entry may round the other way by one
   fp32 ulp, tests/test_torch_features.py);
 - `build_multipnp_image` against JAX, jitted under `jitted_reference()`
-  (tests/test_torch_jaxref.py: every `jax.lax.scan` unrolled once, so
-  XLA:CPU compiles the PnP stack; the reference's arithmetic as it is),
-  with the reference's draw `jax.random.uniform(key, (H,3))`: `ok` and
+  (tests/test_torch_jaxref.py), with the reference's draw `jax.random.uniform(key, (H,3))`: `ok` and
   the inlier count exact, T and norm within 1e-4 (fp32 Gauss-Newton on
   each side);
 - GraphicEnd2 alone over a short orbit (320x240, 256 keypoints, 128
@@ -43,7 +41,7 @@ from slam3d_gx_tpu.config import CameraIntrinsics
 from slam3d_gx_tpu.frontend import pipeline as jpipe
 from slam3d_gx_tpu.ops import pointcloud as jpc
 from slam3d_gx_tpu.testing import synthetic
-from test_torch_jaxref import jitted, one_torch_thread  # noqa: F401  (fixtures)
+from test_torch_jaxref import jitted  # noqa: F401  (a fixture)
 
 H, W, K = 120, 160, 64
 INTR = CameraIntrinsics(fx=130.0, fy=130.0, cx=80.0, cy=60.0, factor=5000.0)

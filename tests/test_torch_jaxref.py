@@ -87,15 +87,13 @@ def jitted():
         yield
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for torch while a module runs. The port's CPU
-    paths issue many small operations, which torch's thread pool only
-    slows down when the test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# One intra-op thread for torch in the process that imports this module.
+# The port's CPU paths issue many small operations, which torch's pool of a
+# thread a core only slows when six test workers share the cores. Each
+# worker imports every test module when it collects the suite, so every
+# port test it runs gets one thread; a port file run alone keeps torch's
+# default unless it imports this module.
+torch.set_num_threads(1)
 
 
 # -- the reference's draws, replayed into the port ---------------------------

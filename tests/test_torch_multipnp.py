@@ -1,11 +1,7 @@
 """Parity of the port's multiPnP (plane path registration) with the JAX package.
 
 The JAX multiPnP runs jitted under `jitted_reference()`
-(tests/test_torch_jaxref.py): every `jax.lax.scan` takes `unroll=1`,
-which lays the reference's 24-step Durand-Kerner sweep and LM polish
-out as loops instead of unrolled code. The steps and their arithmetic
-are the reference's; only XLA:CPU's compile, which does not finish on
-the unrolled form, changes. So both refine modes are held against JAX:
+(tests/test_torch_jaxref.py). So both refine modes are held against JAX:
 "full", and "tiered", the frontend's default (no polish in the
 per-plane solves, a 4-step polish in the pooled one), on an exact pair
 and on a pair with pixel noise and outliers. "tiered" is also held
@@ -30,7 +26,7 @@ from slam3d_gx_torch.frontend import pipeline as tpipe
 from slam3d_gx_torch.frontend.state import result_to_host
 from slam3d_gx_tpu.config import CameraIntrinsics
 from slam3d_gx_tpu.frontend import pipeline as jpipe
-from test_torch_jaxref import jitted, one_torch_thread  # noqa: F401  (fixtures)
+from test_torch_jaxref import jitted  # noqa: F401  (a fixture)
 
 INTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 TINTR = TorchIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)

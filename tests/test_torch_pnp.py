@@ -2,11 +2,7 @@
 
 The JAX `quartic_roots`, `p3p_grunert`, `refine_pnp` and
 `solve_pnp_ransac` run jitted, as the reference uses them, under
-`jitted_reference()` (tests/test_torch_jaxref.py): every `jax.lax.scan`
-takes `unroll=1`, so the 24-step Durand-Kerner sweep and the LM polish
-are compiled as loops rather than unrolled (XLA:CPU does not finish
-compiling the unrolled sweep). The steps and their arithmetic are the
-reference's. Both packages get the same uniforms `u` (those of the
+`jitted_reference()` (tests/test_torch_jaxref.py). Both packages get the same uniforms `u` (those of the
 reference's key). Tolerances and why:
 - roots: 1e-5 relative, complex64 arithmetic in the same order;
 - P3P: the valid-candidate masks exactly; per triplet, the candidate
@@ -29,7 +25,7 @@ from slam3d_gx_torch.ops import pnp as tpnp
 from slam3d_gx_torch.ops import polynomial as tpoly
 from slam3d_gx_tpu.ops import pnp as jpnp
 from slam3d_gx_tpu.ops import polynomial as jpoly
-from test_torch_jaxref import jitted, one_torch_thread  # noqa: F401  (fixtures)
+from test_torch_jaxref import jitted  # noqa: F401  (a fixture)
 
 CAM = (260.0, 260.0, 160.0, 120.0)
 RV = np.array([0.05, -0.1, 0.02], np.float32)

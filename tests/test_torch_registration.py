@@ -8,8 +8,7 @@ wiring into both frontends, on the CPU.
   from the single one);
 - both verifiers against the JAX `build_batched_multipnp`
   (parallel/registration.py:58), jitted under `jitted_reference()`
-  (tests/test_torch_jaxref.py: every `jax.lax.scan` unrolled once, the
-  reference's arithmetic as it is), with the reference's draws
+  (tests/test_torch_jaxref.py), with the reference's draws
   (`jax.random.split(key, B)`): `ok` and inliers exact, T within 1e-4
   (fp32 Gauss-Newton on each side). The image verifier on 2 pairs, 32
   keypoints, 16 hypotheses; the plane verifier, which the reference
@@ -45,7 +44,7 @@ from slam3d_gx_torch.parallel import registration as treg
 from slam3d_gx_torch.testing import synthetic
 from slam3d_gx_tpu.config import CameraIntrinsics
 from slam3d_gx_tpu.parallel import registration as jreg
-from test_torch_jaxref import KeyReplay, jitted, one_torch_thread  # noqa: F401  (fixtures)
+from test_torch_jaxref import KeyReplay, jitted  # noqa: F401  (a fixture)
 
 INTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 TINTR = TorchIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)

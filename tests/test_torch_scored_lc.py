@@ -1,7 +1,6 @@
 """Scored loop closure and the finalize pre-filter on the port's own
 frontend (GraphicEnd2, image-only, GFTT/SIFT at 320x240, on the CPU).
-A whole JAX run does not compile on this CPU (its jitted multiPnP), so
-the properties of the JAX package's tests are held on the port:
+The properties of the JAX package's tests, held on the port:
 
 - tests/test_e2e.py's pre-filter property: with finalize_prefilter at or
   above the keyframe count the final edge set equals that of

@@ -5,10 +5,7 @@
   package's own plane-pipeline test (tests/test_e2e.py), and the
   reference's file set. This run is on the port's own draws; the same
   orbit on the reference's draws is held frame by frame against the
-  jitted JAX run in tests/test_torch_wholerun.py (the JAX package
-  compiles there under `jitted_reference()`, tests/test_torch_jaxref.py,
-  which unrolls every `jax.lax.scan` once and leaves its arithmetic as
-  it is).
+  jitted JAX run in tests/test_torch_wholerun.py.
 - the CLI entry point writes the four output files;
 - entry points raise without a card unless the CPU is asked for, config
   values the port does not carry raise, and the retrieval keys

@@ -9,8 +9,7 @@ CPU.
   with and without the rescue. The port's tracker also registers the
   keyframe against `last` only when it carries no registration of it.
 - Real chunks against the JAX tracker, jitted under `jitted_reference()`
-  (tests/test_torch_jaxref.py: every `jax.lax.scan` unrolled once, the
-  reference's arithmetic as it is), given the same draws
+  (tests/test_torch_jaxref.py), given the same draws
   (`interop.chunk_draws`, or the replay of tests/test_torch_jaxref.py):
   an image-only chunk of 3 frames (320x240, GFTT + SIFT, 256 keypoints,
   128 hypotheses) and a plane chunk of 3 frames (SIFT + SIFT, the
@@ -55,8 +54,7 @@ from slam3d_gx_tpu.frontend import pipeline as jpipe
 from slam3d_gx_tpu.frontend import streaming as jstream
 from slam3d_gx_tpu.frontend.state import FrameFeatures as JFeatures
 from slam3d_gx_tpu.frontend.state import MultiPnPResult as JResult
-from test_torch_jaxref import (KeyReplay, ReplaySampler, jitted,  # noqa: F401  (fixtures)
-                              one_torch_thread)
+from test_torch_jaxref import KeyReplay, ReplaySampler, jitted  # noqa: F401  (a fixture)
 
 INTR = TorchIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 JINTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)

@@ -58,7 +58,7 @@ import os
 import numpy as np
 import pytest
 
-from test_torch_jaxref import KeyReplay, jitted_reference, one_torch_thread  # noqa: F401
+from test_torch_jaxref import KeyReplay, jitted_reference
 
 # -- run helpers shared with the seed protocol ------------------------------------
 

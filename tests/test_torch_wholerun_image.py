@@ -10,7 +10,6 @@ within 1e-4 m.
 
 import pytest
 
-from test_torch_jaxref import one_torch_thread  # noqa: F401  (a fixture)
 from test_torch_wholerun import RUN, both, hold, summary, write_orbit
 
 FRAMES = 12
