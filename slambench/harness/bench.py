@@ -129,6 +129,20 @@ def drawn(seed: int, tag: str, bits: int = 63) -> int:
     return int.from_bytes(h, "little") >> (64 - bits)
 
 
+def session_plan(k: int, n_seq: int) -> tuple:
+    """(sequence, tag of its RANSAC draws) of a window's session k. A pass
+    is the traffic's n_seq sessions, session j over sequence j with the
+    draws tagged ransac{j}; every pass repeats the first."""
+    j = k % n_seq
+    return j, f"ransac{j}"
+
+
+def runs_session(k: int, n_seq: int, time_left: bool) -> bool:
+    """Whether the window runs its session k: all of the first pass, the
+    rest of a pass once begun, and a new pass only while time is left."""
+    return k < n_seq or k % n_seq != 0 or time_left
+
+
 def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool, t_start: float,
              device=None, plant=None, log=sys.stderr, readings=False) -> dict:
     """One run; returns the result object (see run.py), its last key
@@ -203,11 +217,12 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool, t_sta
         print("slambench: set-up " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()),
               file=log)
 
-        # -- the window: whole sessions back to back, one over each of the
-        # traffic's sequences, and more (over them again, with other
-        # draws) while `seconds` have not passed; none is cut. The
-        # traffic's sessions outlast the window on the hosts seen, so a
-        # run does a fixed amount of work drawn from its seed. An
+        # -- the window: whole passes back to back. A pass is one session
+        # over each of the traffic's sequences (session_plan); a new pass,
+        # with the same sequences and draws as the first, starts only
+        # while `seconds` have not passed, and none is cut. So a run does
+        # whole copies of one piece of work drawn from its seed, and a
+        # faster program does more copies of it, not other work. An
         # untraced run collects the device activity of the whole window
         # (device_ms_per_frame); a traced one profiles its first session
         # alone, under the spans.
@@ -218,10 +233,11 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool, t_sta
             t0 = time.perf_counter()
             q0 = time.time_ns()
             deadline = t0 + seconds
-            while len(sessions) < n_seq or time.perf_counter() < deadline:
+            while runs_session(len(sessions), n_seq, time.perf_counter() < deadline):
                 k = len(sessions)
+                seq, tag = session_plan(k, n_seq)
                 ctx.recorder = hooks.Recorder()
-                workdir = session_dir(f"s{k}", k % n_seq, drawn(seed, f"ransac{k}", 31))
+                workdir = session_dir(f"s{k}", seq, drawn(seed, tag, 31))
                 if trace and not sessions:
                     with trace_mod.profiled(device.type == "cuda") as events:
                         p0 = time.time_ns()
@@ -233,7 +249,7 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool, t_sta
                     s = cell.driver.run_session(ctx, workdir, frames)
                 ge = s.pop("ge")
                 s.update(workdir=workdir, recorder=ctx.recorder,
-                         edges=list(ge.opt.graph.edges), seq=k % n_seq, lost=None)
+                         edges=list(ge.opt.graph.edges), seq=seq, lost=None)
                 del ge
                 sessions.append(s)
             window_s = time.perf_counter() - t0
@@ -308,6 +324,7 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool, t_sta
                                 "idle_gaps": run.trace["idle_gaps"]}
         info = {"sessions": len(sessions),
                 "lost_frames": out["failed"],
+                "lost_by_session": [s["lost"] for s in sessions],
                 "registrations_checked": numbers.get("registrations_checked"),
                 "decisions_checked": numbers.get("decisions_checked"),
                 "registrable": numbers.get("registrable"),

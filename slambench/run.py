@@ -6,11 +6,12 @@
 Renders the cell's sequences on the card (the traffic's trajectory
 through rooms whose textures, and a sensor noise, are drawn from
 --seed), writes them in the TUM layout under $TMPDIR, warms the cell's
-own path with one short session, then replays whole SLAM sessions
-(slam3d_gx_torch's GraphicEnd2, driven as its run_SLAM_imageonly CLI
-drives it) back to back: one over each sequence, with RANSAC draws also
-drawn from --seed, and more while --seconds have not passed (a least
-length: sessions are never cut). Then it checks what the window produced
+own path with one short session, then runs whole passes back to back. A
+pass is one SLAM session (slam3d_gx_torch's GraphicEnd2, driven as its
+run_SLAM_imageonly CLI drives it) over each sequence, with RANSAC draws
+also drawn from --seed; every pass replays the first's sequences and
+draws, and a new one starts only while --seconds have not passed (a
+least length: passes are never cut). Then it checks what the window produced
 against the plain reference and prints one JSON line: correct, attempted
 (frames), failed (frames the tracker lost), metrics (--trace 0: the
 cell's end-to-end metrics; --trace 1: its per-layer metrics, the first

@@ -10,6 +10,7 @@ without one.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
@@ -64,10 +65,19 @@ def make_root(dst, sizes: dict, frames: int, warm: int) -> str:
     return root
 
 
-def run(root, cell, seconds=4.0, trace=False, plant=None, seed=3000000123):
+def run(root, cell, seconds=4.0, trace=False, plant=None, seed=3000000123, log=sys.stderr):
     torch.set_num_threads(2)
     return bench.run_cell(root, cell, seed, seconds, trace, time.perf_counter(), device="cpu",
-                          plant=plants.Plant(plant) if plant else None)
+                          plant=plants.Plant(plant) if plant else None, log=log)
+
+
+def info_line(text: str) -> dict:
+    """sessions, lost_by_session and window_s of a run's info line."""
+    line = [ln for ln in text.splitlines() if re.match(r"slambench: \S+ seed \d+: ", ln)][-1]
+    lost = re.search(r"lost_by_session \[([^\]]*)\]", line).group(1)
+    return {"sessions": int(re.search(r" sessions (\d+),", line).group(1)),
+            "lost_by_session": [int(x) for x in lost.split(",") if x.strip()],
+            "window_s": float(re.search(r" window_s ([0-9.]+),", line).group(1))}
 
 
 @pytest.fixture(scope="module")
@@ -150,6 +160,21 @@ def test_run_seed_draws_the_rooms_the_noise_and_the_draws():
     assert 0 <= bench.drawn(2**70 + 3, "ransac0", 31) < 2**31
 
 
+@pytest.mark.parametrize("n_seq", [1, 2, 3])
+def test_window_holds_whole_passes_of_the_same_draws(n_seq):
+    """Pass p's session j runs sequence j with the draws tagged ransac{j}
+    for every p, and a window whose time runs out after t sessions have
+    begun holds the whole passes that those sessions began."""
+    for p in range(4):
+        for j in range(n_seq):
+            assert bench.session_plan(p * n_seq + j, n_seq) == (j, f"ransac{j}")
+    for t in range(3 * n_seq + 2):
+        k = 0
+        while bench.runs_session(k, n_seq, k < t):
+            k += 1
+        assert k == max(1, -(-t // n_seq)) * n_seq
+
+
 def test_roofline_byte_counts_at_480x640():
     assert roofline.equalize_bytes(480, 640) == 614_400
     assert roofline.min_eig_bytes(480, 640) == 1_536_000
@@ -169,6 +194,26 @@ def test_result_line_shape(small_root):
     for c in out["checks"].values():
         assert set(c) == {"value", "limit"}
     json.dumps(out)
+
+
+def test_later_passes_repeat_the_first(small_root):
+    """One seed with `seconds` 0 runs one pass; with time for two or more,
+    the window holds whole passes whose lost frames repeat pass 0's, so
+    the share of frames lost is the same."""
+    cell = bench.Cell(small_root, "imageonly-gftt-perframe")
+    n_seq = int(cell.traffic["sessions"])
+    log = io.StringIO()
+    one = run(small_root, "imageonly-gftt-perframe", seconds=0.0, log=log)
+    first = info_line(log.getvalue())
+    assert first["sessions"] == n_seq and len(first["lost_by_session"]) == n_seq
+    log = io.StringIO()
+    more = run(small_root, "imageonly-gftt-perframe", seconds=2 * first["window_s"], log=log)
+    again = info_line(log.getvalue())
+    assert again["sessions"] % n_seq == 0 and again["sessions"] >= 2 * n_seq
+    assert again["lost_by_session"] == first["lost_by_session"] * (again["sessions"] // n_seq)
+    assert one["correct"] is True and more["correct"] is True
+    assert more["attempted"] == one["attempted"] * again["sessions"] // n_seq
+    assert more["failed"] * one["attempted"] == one["failed"] * more["attempted"]
 
 
 def test_traced_line_has_per_layer_metrics(small_root):
