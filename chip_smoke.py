@@ -24,7 +24,10 @@ Phases, each of which must pass or the script exits non-zero:
    1080x1920 and 2160x3840 for the grid-stride loop, a non-contiguous
    view, a row-cropped view read in place at its pitch, a 1-byte-
    misaligned base), every built variant bit for bit, and 1,000
-   back-to-back calls on alternating images. Then time kernel, plain
+   back-to-back calls on alternating images; `refine_lm` (the PnP
+   polish, which replaces no TPU kernel) within 1e-4 of its plain
+   version on the card at G = 1 and G = 30 problems of 512
+   correspondences, one launch a call. Then time kernel, plain
    version and, where there is one, one PyTorch library call on the card
    (torch.profiler's device times, median of 200 calls after warm-up),
    one wrapper call on the stream with CUDA events and on the host;
@@ -621,6 +624,85 @@ def time_equalize_kernels(dev, kernels, equalize):
     return rows
 
 
+# refine_lm: the main path's polish, N = 512 correspondences (max_keypoints)
+LM_N, LM_ITERS = 512, 10
+LM_ATOL = 1e-4  # rad and m: tests/test_torch_cuda.py's bound, and why
+# operations of one correspondence in one pass: its projection (~28), its
+# 2x6 Jacobian (~105), its terms of J^T J, J^T r and r^T r (~112)
+LM_OPS_PER_POINT = 245
+
+
+def refine_lm_case(G: int, seed: int, dev):
+    """G polishes of LM_N correspondences as a RANSAC winner hands them
+    over: points 1-4 m away, a pose near the identity, 0.5 px noise, a
+    quarter outliers at weight 0, a start 0.02 off."""
+    from slam3d_gx_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    cam = (INTR_KW["fx"], INTR_KW["fy"], INTR_KW["cx"], INTR_KW["cy"])
+    obj = rng.uniform([-1.5, -1.2, 1.0], [1.5, 1.2, 4.0], (G, LM_N, 3))
+    rv, tv = rng.normal(0, 0.05, (G, 3)), rng.normal(0, 0.05, (G, 3))
+    R = lie.rodrigues(torch.from_numpy(rv.astype(np.float32))).double().numpy()
+    pc = np.einsum("gij,gnj->gni", R, obj) + tv[:, None]
+    img = np.stack([cam[0] * pc[..., 0] / pc[..., 2] + cam[2],
+                    cam[1] * pc[..., 1] / pc[..., 2] + cam[3]], -1)
+    img += rng.normal(0, 0.5, img.shape)
+    out = rng.random((G, LM_N)) < 0.25
+    img[out] += rng.normal(0, 40, (int(out.sum()), 2))
+    rv0, tv0 = rv + rng.normal(0, 0.02, rv.shape), tv + rng.normal(0, 0.02, tv.shape)
+    args = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+            for a in (rv0, tv0, obj, img, ~out)]
+    return args, cam
+
+
+def check_refine_lm(dev, kernels, refine_lm):
+    """The kernel against its plain version on the card, at G = 1 (the
+    per-frame solve) and G = 30 (a verifier round), N = LM_N, 10
+    iterations, within LM_ATOL; one launch a call. Returns the largest
+    error."""
+    worst = 0.0
+    for G in (1, 30):
+        args, cam = refine_lm_case(G, 40 + G, dev)
+        before = kernels.launch_counts()["refine_lm"]
+        got = refine_lm.refine_lm(*args, *cam, iters=LM_ITERS)
+        launched = kernels.launch_counts()["refine_lm"] - before
+        want = refine_lm.refine_lm_plain(*args, *cam, iters=LM_ITERS)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        print(f"  refine_lm G={G} N={LM_N}: {launched} launch, max abs err {err:.3g} against "
+              f"the plain version on the card (tolerance {LM_ATOL})", flush=True)
+        if launched != 1 or not err <= LM_ATOL:
+            raise AssertionError(f"refine_lm at G={G}: {launched} launches, error {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def time_refine_lm(dev, refine_lm):
+    """Device time of one call at G = 1 and G = 30, N = LM_N, 10
+    iterations (median of 200 calls), the plain version's (median of 10:
+    each is ~6,400 launches), and the bound: the points read once, and
+    LM_OPS_PER_POINT a point in each of the 11 passes. No single PyTorch
+    call computes this function. Returns G = 1's row."""
+    rows = {}
+    for G in (1, 30):
+        args, cam = refine_lm_case(G, 50 + G, dev)
+        nbytes = G * LM_N * 6 * 4 + G * 12 * 4
+        b, by = bound(nbytes, G * LM_N * (LM_ITERS + 1) * LM_OPS_PER_POINT)
+        ms, how, ops = device_ms(lambda: refine_lm.refine_lm(*args, *cam, iters=LM_ITERS))
+        plain_ms, _, plain_ops = device_ms(
+            lambda: refine_lm.refine_lm_plain(*args, *cam, iters=LM_ITERS), calls=10, warmup=2)
+        r = rows[G] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b, bound_by=by)
+        print(f"  refine_lm G={G} N={LM_N} iters={LM_ITERS} ({how}): kernel "
+              f"{ms * 1e3:.3f} us in {ops:g} device operation(s), plain {plain_ms * 1e3:.3f} us "
+              f"in {plain_ops:g}, library none, bound {b * 1e3:.4f} us ({by}, "
+              f"{100 * b / ms:.3f}% of it); one wrapper call on the stream "
+              f"{event_ms(lambda: refine_lm.refine_lm(*args, *cam, iters=LM_ITERS)) * 1e3:.3f} "
+              f"us, on the host "
+              f"{host_us(lambda: refine_lm.refine_lm(*args, *cam, iters=LM_ITERS)):.3f} us",
+              flush=True)
+    return rows[1]
+
+
 INTR_KW = dict(fx=520.0, fy=520.0, cx=320.0, cy=240.0, factor=5000.0)
 OUTPUTS = ("final.g2o", "final_after.g2o", "keyframe.txt", "error_of_transform.log")
 
@@ -895,7 +977,7 @@ EXACT_READS = {"ORB"}
 HYP_SHARE = 0.95
 EXP_MIN_CONSENSUS = 10
 NO_KERNELS = {"equalize_hist256": 0, "histogram256": 0, "apply_lut256": 0,
-              "min_eig_response": 0}
+              "min_eig_response": 0, "refine_lm": 0}
 
 
 KP_POS_TOL = 0.01  # px: SIFT's sub-pixel positions differ in last bits between devices
@@ -1183,9 +1265,10 @@ def run_image_only_pair(kernels, dev, base: str, root: str, traj, name: str, dim
     entry = host_draws(GraphicEnd2)
     extra = dict(detector_name=name, descriptor_name=name, max_pos_change=0.05)
     work = write_run_dir(base, f"image_{name}", root, **extra)
+    # run_path counts launches an extraction; refine_lm launches once a solve
     launches, ge, _ = run_path(kernels, lambda argv, stats: run_slam.run(
-        entry, argv, stats=stats), work, traj, loops, {k: False for k in NO_KERNELS},
-        min_keyframes=1)
+        entry, argv, stats=stats), work, traj, loops,
+        {k: False for k in NO_KERNELS if k != "refine_lm"}, min_keyframes=1)
     work_cpu = write_run_dir(base, f"image_{name}_cpu", root, **extra)
     cwd = os.getcwd()
     os.chdir(work_cpu)
@@ -1260,9 +1343,12 @@ def zoo_phase(kernels, dev, base: str, root: str, traj) -> dict:
     phase(f"exp1_2 1 3: GFTT/SIFT n and p, ORB/ORB n, seeds 0-{EXP_SEEDS - 1}, card "
           "against CPU")
     for det, desc, mode, expect in (
-            ("GFTT", "SIFT", "n", {"min_eig_response": 2}),
-            ("GFTT", "SIFT", "p", {"min_eig_response": 2, "equalize_hist256": 2}),
-            ("ORB", "ORB", "n", {})):
+            # refine_lm: one polish in `n`; the pooled (4 steps) and the 3 px
+            # (10 steps) solves in `p`, whose per-plane solves polish nothing
+            ("GFTT", "SIFT", "n", {"min_eig_response": 2, "refine_lm": 1}),
+            ("GFTT", "SIFT", "p", {"min_eig_response": 2, "equalize_hist256": 2,
+                                   "refine_lm": 2}),
+            ("ORB", "ORB", "n", {"refine_lm": 1})):
         argv = ["1", "3", det, desc, mode]
         zoo["exp1_2 " + " ".join(argv)] = run_exp1_2(kernels, dev, base, root, argv, expect)
     time_log = os.path.join(base, "exp1_2_1_3_GFTT_SIFT_p_0", "data", "time.log")
@@ -1713,7 +1799,7 @@ def main(argv=()) -> int:
     sys.path.insert(0, REPO)
     from slam3d_gx_torch import kernels
     from slam3d_gx_torch.cli import run_slam, run_slam_imageonly, run_slam_streaming
-    from slam3d_gx_torch.kernels import build, equalize, min_eig
+    from slam3d_gx_torch.kernels import build, equalize, min_eig, refine_lm
     from slam3d_gx_torch.ops import imageproc
 
     dev = torch.device("cuda")
@@ -1741,9 +1827,11 @@ def main(argv=()) -> int:
     err = check_equalize_kernels(dev, kernels, equalize)
     err["equalize_hist256"] = check_equalize_hist256(dev, kernels, equalize)
     err["min_eig_response"] = check_min_eig(dev, kernels, min_eig)
+    err["refine_lm"] = check_refine_lm(dev, kernels, refine_lm)
     timing = time_equalize_kernels(dev, kernels, equalize)
     timing["equalize_hist256"] = time_equalize_hist256(dev, kernels, equalize)
     timing["min_eig_response"] = time_min_eig(dev, kernels, min_eig)
+    timing["refine_lm"] = time_refine_lm(dev, refine_lm)
 
     phase("equalize_hist on the card against the CPU")
     rng = np.random.default_rng(2)
@@ -1788,6 +1876,7 @@ def main(argv=()) -> int:
         post_phase(kernels, dev, base, root, traj, work_image, ge_image)
         return 0
     launches["min_eig_response"] = launches_image["min_eig_response"]
+    launches["refine_lm"] = launches_image["refine_lm"]
 
     phase("plane path with GFTT, a few frames: equalize_hist256 and K3 once per extraction")
     work_gftt = write_run_dir(base, "planes_gftt", root, detector_name="GFTT",
@@ -1842,7 +1931,8 @@ def main(argv=()) -> int:
     sources = {"equalize_hist256": (eq_cu, [f"{tpu}:24", f"{tpu}:102"], True),
                "histogram256": (eq_cu, f"{tpu}:24", False),
                "apply_lut256": (eq_cu, f"{tpu}:102", False),
-               "min_eig_response": ("slam3d_gx_torch/csrc/min_eig.cu", f"{tpu}:144", True)}
+               "min_eig_response": ("slam3d_gx_torch/csrc/min_eig.cu", f"{tpu}:144", True),
+               "refine_lm": ("slam3d_gx_torch/csrc/refine_lm.cu", [], True)}
     rows = []
     covered = set()
     for name, (source, replaces, on_path) in sources.items():

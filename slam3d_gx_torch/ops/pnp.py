@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.refine_lm import refine_lm
 from . import lie
 from .features.common import top_k
 from .polynomial import quartic_roots, real_roots_mask
@@ -173,54 +174,15 @@ def _inlier_votes(R, t, obj, img, mask, fx, fy, cx, cy, th2):
 # ---------------------------------------------------------------------------
 
 
-def _residuals(x, obj, img, weights, fx, fy, cx, cy):
-    """One problem: x (6,) -> (2N,) weighted reprojection residuals."""
-    R = lie.rodrigues(x[:3])
-    pc = obj @ R.T + x[3:]
-    z = pc[:, 2]
-    safe_z = torch.where(torch.abs(z) > 1e-9, z, 1e-9)
-    uv = torch.stack([pc[:, 0] * fx / safe_z + cx, pc[:, 1] * fy / safe_z + cy], -1)
-    r = (uv - img) * torch.sqrt(weights)[:, None]
-    return torch.where(torch.isfinite(r), r, 0.0).reshape(-1)
-
-
 def refine_pnp(rvec, tvec, obj, img, weights, fx, fy, cx, cy, iters: int = 10):
     """Levenberg-damped Gauss-Newton on the reprojection objective.
 
     weights: (...,N) float (0 masks a correspondence out). Leading batch
-    dims (at most one) solve independent problems together.
+    dims (at most one) solve independent problems together. On the card
+    all the iterations are one kernel launch (kernels/refine_lm.py); on
+    the CPU its plain version runs.
     """
-    single = obj.dim() == 2
-    if single:
-        rvec, tvec, obj, img, weights = (a[None] for a in (rvec, tvec, obj, img, weights))
-
-    def res(x, o, im, w):
-        return _residuals(x, o, im, w, fx, fy, cx, cy)
-
-    res_b = torch.func.vmap(res)
-    jac_b = torch.func.vmap(torch.func.jacfwd(res))
-
-    x = torch.cat([rvec, tvec], dim=-1)
-    G = x.shape[0]
-    lam = torch.full((G,), 1e-3, dtype=x.dtype, device=x.device)
-    e = torch.sum(res_b(x, obj, img, weights) ** 2, dim=-1)
-    eye = torch.eye(6, dtype=x.dtype, device=x.device)
-    for _ in range(iters):
-        r = res_b(x, obj, img, weights)
-        J = jac_b(x, obj, img, weights)  # (G,2N,6)
-        Jt = J.transpose(-1, -2)
-        H = Jt @ J
-        g = (Jt @ r[..., None])[..., 0]
-        H = H + lam[:, None, None] * (torch.diagonal(H, dim1=-2, dim2=-1) + 1e-9)[:, None, :] * eye
-        dx = torch.linalg.solve_ex(H, -g)[0]
-        x_new = x + dx
-        e_new = torch.sum(res_b(x_new, obj, img, weights) ** 2, dim=-1)
-        better = e_new < e
-        x = torch.where(better[:, None], x_new, x)
-        e = torch.where(better, e_new, e)
-        lam = torch.where(better, lam * 0.5, lam * 4.0)
-    rv, tv = x[..., :3], x[..., 3:]
-    return (rv[0], tv[0]) if single else (rv, tv)
+    return refine_lm(rvec, tvec, obj, img, weights, fx, fy, cx, cy, iters=iters)
 
 
 # ---------------------------------------------------------------------------

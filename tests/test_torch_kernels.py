@@ -1,11 +1,14 @@
-"""`equalize_hist256`, K1 `histogram256`, K2 `apply_lut256` and `equalize_hist`.
+"""`equalize_hist256`, K1 `histogram256`, K2 `apply_lut256`, `equalize_hist`
+and the `refine_lm` wrapper.
 
 On the CPU the port's wrappers run their plain PyTorch versions; these
 are held exactly (integer counts, integer LUT values) against the JAX
 package's Pallas kernels run in interpret mode (patched as
 tests/test_pallas_kernels.py does), against its plain versions and
-against numpy. The CUDA kernels themselves run only on the card:
-tests/test_torch_cuda.py compares them with the plain versions there.
+against numpy. `refine_lm` on the CPU is its plain version (the
+JAX comparison is tests/test_torch_pnp.py's). The CUDA kernels
+themselves run only on the card: tests/test_torch_cuda.py compares them
+with the plain versions there.
 """
 
 import ast
@@ -18,7 +21,9 @@ import pytest
 import torch
 
 from slam3d_gx_torch import kernels
+from slam3d_gx_torch.kernels import refine_lm as tlm
 from slam3d_gx_torch.ops import imageproc as timg
+from slam3d_gx_torch.ops import pnp as tpnp
 from slam3d_gx_tpu.ops import imageproc as jimg
 from slam3d_gx_tpu.ops import pallas_kernels as jpk
 
@@ -177,7 +182,8 @@ def test_wrappers_count_only_kernel_launches():
     timg.equalize_hist(img)
     kernels.equalize_hist256(img)
     assert kernels.launch_counts() == {"equalize_hist256": 0, "histogram256": 0,
-                                       "apply_lut256": 0, "min_eig_response": 0}
+                                       "apply_lut256": 0, "min_eig_response": 0,
+                                       "refine_lm": 0}
 
 
 def test_wrappers_refuse_a_device_without_a_kernel():
@@ -188,14 +194,47 @@ def test_wrappers_refuse_a_device_without_a_kernel():
         kernels.apply_lut256(meta, torch.zeros(256, device="meta"))
     with pytest.raises(RuntimeError, match="unsupported device"):
         kernels.equalize_hist256(meta)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tlm.refine_lm(*(a.to("meta") for a in lm_problem(8, None)), *LM_CAM)
 
 
 def test_wrappers_have_no_fallback_from_the_kernel():
     """On a CUDA tensor the wrapper launches the kernel or raises: no
     `try` around the launch may route to the plain version."""
-    for module in ("equalize.py", "min_eig.py"):
+    for module in ("equalize.py", "min_eig.py", "refine_lm.py"):
         tree = ast.parse((REPO / "slam3d_gx_torch" / "kernels" / module).read_text())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], module
+
+
+def c_entries(source: str) -> dict:
+    """{name: [ctypes type of each parameter]} of every `extern "C"` entry
+    in a CUDA source: a pointer is c_void_p, then long long, int, float."""
+    import ctypes
+    import re
+
+    def ctype(param):
+        if "*" in param:
+            return ctypes.c_void_p
+        if "long long" in param:
+            return ctypes.c_longlong
+        return {"int": ctypes.c_int, "float": ctypes.c_float}[param.split()[0]]
+
+    return {m.group(1): [ctype(p.strip()) for p in m.group(2).split(",") if p.strip()]
+            for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', source)}
+
+
+@pytest.mark.parametrize("module", ["equalize", "min_eig", "refine_lm"])
+def test_wrapper_types_every_c_entry_as_its_source_declares(module):
+    """ctypes passes an argument left out of `argtypes` by its default
+    conversion (a Python int as a 32-bit int), so a stream handle the list
+    forgets reaches the kernel with its upper half unset. Each wrapper
+    types every parameter of every C entry of its source, in order."""
+    import importlib
+
+    mod = importlib.import_module(f"slam3d_gx_torch.kernels.{module}")
+    source = (REPO / "slam3d_gx_torch" / "csrc" / f"{mod.SOURCE}.cu").read_text()
+    declared = c_entries(source)
+    assert declared and mod._ARGTYPES == declared
 
 
 def test_built_library_is_named_after_its_source_and_flags(monkeypatch):
@@ -209,3 +248,54 @@ def test_built_library_is_named_after_its_source_and_flags(monkeypatch):
     assert pathlib.Path(a).parent == pathlib.Path(build.BUILD_DIR)
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-lineinfo"])
     assert a != build.lib_path("equalize", "__global__ void k() {}")
+
+
+LM_CAM = (260.0, 260.0, 160.0, 120.0)
+
+
+def lm_problem(n, G, seed=4):
+    """(rvec, tvec, obj, img, weights) float32: a start 0.03 off a pose
+    that explains the pixels to 0.3 px; G=None for one problem."""
+    rng = np.random.default_rng(seed)
+    lead = () if G is None else (G,)
+    obj = rng.uniform([-1, -1, 2], [1, 1, 4], lead + (n, 3))
+    img = obj[..., :2] / obj[..., 2:] * 260.0 + [160.0, 120.0]
+    img = img + rng.normal(0, 0.3, img.shape)
+    w = (rng.random(lead + (n,)) > 0.2)
+    rv = rng.normal(0, 0.03, lead + (3,))
+    tv = rng.normal(0, 0.03, lead + (3,))
+    return tuple(torch.from_numpy(np.asarray(a, np.float32)) for a in (rv, tv, obj, img, w))
+
+
+@pytest.mark.parametrize("G", [None, 3])
+@pytest.mark.parametrize("iters", [0, 4])
+def test_refine_lm_on_the_cpu_is_its_plain_version(G, iters):
+    """Bit for bit, through the wrapper and through ops.pnp.refine_pnp,
+    and no launch counted."""
+    args = lm_problem(64, G)
+    kernels.reset_counts()
+    want = tlm.refine_lm_plain(*args, *LM_CAM, iters=iters)
+    for got in (tlm.refine_lm(*args, *LM_CAM, iters=iters),
+                tpnp.refine_pnp(*args, *LM_CAM, iters=iters)):
+        for a, b in zip(got, want):
+            assert a.shape == b.shape == ((3,) if G is None else (G, 3))
+            assert torch.equal(a, b)
+    assert kernels.launch_counts()["refine_lm"] == 0
+
+
+@pytest.mark.parametrize("bad", ["float64", "batch_rank_2", "shapes_disagree"])
+def test_refine_lm_refuses_what_it_does_not_take(bad):
+    rv, tv, obj, img, w = lm_problem(16, 2)
+    if bad == "float64":
+        obj = obj.double()
+        err, match = TypeError, "float32"
+    elif bad == "batch_rank_2":
+        rv, tv, obj, img, w = (a[None] for a in (rv, tv, obj, img, w))
+        err, match = ValueError, r"\(N,3\) or \(G,N,3\)"
+    else:
+        w = w[:, :-1]
+        err, match = ValueError, "weights must be"
+    kernels.reset_counts()
+    with pytest.raises(err, match=match):
+        tlm.refine_lm(rv, tv, obj, img, w, *LM_CAM)
+    assert kernels.launch_counts()["refine_lm"] == 0
